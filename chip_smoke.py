@@ -38,6 +38,33 @@ prints no ok line):
    wire format's, not the kernel's; it is printed, not gated), and to
    the fused-vs-generic tolerances of the JAX package (5e-4 int8, 5e-3
    delta) over all 2,048 frames.
+5. InterRDF end to end at full width: BASELINE config 4's O-O g(r) of a
+   TIP3P water box, 32,768 waters (98,304 atoms) in a cubic 99.3 Å box
+   at water density, 64 frames, ``InterRDF(ow, ow).run(backend='torch',
+   device='cuda', batch_size=16)`` with the defaults ``nbins=75,
+   range=(0, 15)`` and float32 staging.  The pair-histogram kernel's
+   launch counter must rise by 4 (one launch per block); the partials
+   stay on the card; a repeat is bit-identical; ``engine='xla'`` (the
+   generic torch-op engine) over all 64 frames gives g(r) and every
+   bin's count within 1e-5 relative; and on the JAX suite's config-4
+   shape (2,000 waters in a 39.1 Å box, 8 frames, ``nbins=75,
+   range=(0, 10)``) the kernel route is within 0.05 of the serial
+   float64 oracle's g(r) at every bin.  Prints the wall, frames/s,
+   pairs/s and the kernel's share of the wall.
+
+Phase 3 also holds the pair-histogram kernel (``ops/fused_distances.
+pair_histogram``, ``csrc/pair_histogram.cu``) against
+``pair_histogram_plain`` on the card: the main shape (the first block of
+phase 5's run: 16 frames of 32,768 × 32,768 oxygens, 75 bins over
+(0, 15) Å, ``exclude_self``), the same block binned over (0, 1) Å where
+no pair falls (the distance arithmetic alone), a ragged 300 × 515 case,
+a case without a
+box, 1 bin, 512 bins, a batch with a masked frame and a batch with a
+triclinic frame (which must come out NaN).  Every case must agree with
+the plain version within one edge-tie flip per bin and per prefix sum
+with the total exact (tests/test_pallas.py's envelope; the number of
+differing bins is printed), two launches must be bit-identical, and no
+bin of a block may reach 2^24 (where float32 counts stop being exact).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -79,6 +106,30 @@ E2E_BATCH = 512
 KERNEL_NAME = "fused_aligned_moments"
 KERNEL_SOURCE = "mdanalysis_mpi_tpu_torch/csrc/fused_rmsf.cu"
 KERNEL_REPLACES = "mdanalysis_mpi_tpu/ops/pallas_fused.py:289"
+
+# Phase 5: BASELINE config 4 (InterRDF O-O, TIP3P water box) at 32,768
+# waters, the 100k-atom size of config 2, in a box at water density
+# (0.0334 waters/Å^3); 64 frames, batch 16.  The oracle check runs at
+# the JAX suite's config-4 shape (benchmarks/suite.py:273: 2,000 waters,
+# 8 frames, range (0, 10)) but in a box at water density, 39.1 Å.
+RDF_WATERS = 32768
+RDF_BOX = 99.3
+RDF_FRAMES = 64
+RDF_BATCH = 16
+ORACLE_WATERS = 2000
+ORACLE_BOX = 39.1
+ORACLE_FRAMES = 8
+# Work of the pair-histogram kernel, counted from csrc/pair_histogram.cu.
+# Every pair: per axis sub, div, rint, mul, sub, square (18), two adds,
+# sqrt, the two range compares = 23.  Every pair inside the range, in
+# addition: sub, mul, floor, two clamps and two edge compares = 7.  The
+# IEEE division and square root take several instructions each, so the
+# bound these give is optimistic.
+FLOPS_PER_PAIR = 23
+FLOPS_PER_BINNED_PAIR = 7
+PH_NAME = "pair_histogram"
+PH_SOURCE = "mdanalysis_mpi_tpu_torch/csrc/pair_histogram.cu"
+PH_REPLACES = "mdanalysis_mpi_tpu/ops/pallas_distances.py:164"
 
 
 class SmokeFailure(Exception):
@@ -270,6 +321,167 @@ def phase_kernels(card_name):
     return rows, worst
 
 
+def event_ms(fn):
+    """One call of ``fn`` timed by CUDA events → (its result, ms)."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def make_water(n_waters, box, n_frames):
+    """The config-4 system from seed 0 and its oxygens."""
+    from mdanalysis_mpi_tpu_torch.testing import make_water_universe
+
+    u = make_water_universe(n_waters=n_waters, box=box, n_frames=n_frames,
+                            seed=0)
+    return u, u.select_atoms("name OW")
+
+
+def ph_bound_ms(a, b, nbins, counts, bw, flops):
+    """Bound of one pair-histogram call: the coordinates, box lengths
+    and edges read once and the uint64 counts written once, against the
+    operations of every pair plus those of the pairs this run's data put
+    inside the range (``counts.sum()``)."""
+    B, N, _ = a.shape
+    M = b.shape[1]
+    nbytes = (B * N + B * M) * 3 * 4 + B * 3 * 4 + (nbins + 1) * 4 \
+        + B * nbins * 8
+    binned = float(np.nansum(counts))
+    ops = FLOPS_PER_PAIR * B * N * M + FLOPS_PER_BINNED_PAIR * binned
+    t_bytes, t_ops = nbytes / bw * 1e3, ops / flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_envelope(name, got, want):
+    """tests/test_pallas.py's envelope: every bin and every prefix sum
+    within one edge-tie flip, the total exact → the number of bins that
+    differ."""
+    got = np.asarray(got, np.float64).reshape(-1, got.shape[-1])
+    want = np.asarray(want, np.float64).reshape(got.shape)
+    diff = got - want
+    check(np.isfinite(got).all(), f"{name}: non-finite counts")
+    check((got.sum(-1) == want.sum(-1)).all(),
+          f"{name}: totals differ {got.sum(-1)} vs {want.sum(-1)}")
+    check(np.abs(diff).max() <= 1.0 and
+          np.abs(np.cumsum(diff, -1)).max() <= 1.0,
+          f"{name}: counts outside the one-flip envelope")
+    return int((diff != 0).sum())
+
+
+def phase_pair_histogram(card_name, ow):
+    """Phase 3, pair-histogram kernel: each case against its plain
+    version on the card → (rows by case, largest |kernel − plain|)."""
+    import torch
+
+    from mdanalysis_mpi_tpu_torch.ops import fused_distances as fd
+
+    bw, flops = card_rates(card_name)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+
+    def rand(B, n, scale):
+        return torch.from_numpy(rng.uniform(
+            0, scale, size=(B, n, 3)).astype(np.float32)).to(dev)
+
+    def lin(lo, hi, nbins):
+        return torch.from_numpy(
+            np.linspace(lo, hi, nbins + 1).astype(np.float32)).to(dev)
+
+    def boxes(B, L, angles=(90.0, 90.0, 90.0)):
+        row = np.array([L, L, L, *angles], np.float32)
+        return torch.from_numpy(np.tile(row, (B, 1))).to(dev)
+
+    block, _ = ow.universe.trajectory.read_block(0, RDF_BATCH,
+                                                 sel=ow.indices)
+    main = torch.from_numpy(np.ascontiguousarray(block)).to(dev)
+    small = rand(2, 150, 25.0)
+    tric = boxes(3, 25.0)
+    tric[1, 3] = 80.0
+    # name: (a, b, boxes (B, 6) or None, edges, exclude_self, mask)
+    cases = {
+        "main": (main, main, boxes(RDF_BATCH, RDF_BOX), lin(0, 15, 75),
+                 True, None),
+        # the main block binned over (0, 1) Å, where no two oxygens of
+        # the lattice lie: every pair's distance is computed, none is
+        # binned, so this reads the arithmetic without the atomics
+        "main-unbinned": (main, main, boxes(RDF_BATCH, RDF_BOX),
+                          lin(0, 1, 75), True, None),
+        "ragged-300x515": (rand(2, 300, 25.0), rand(2, 515, 25.0),
+                           boxes(2, 25.0), lin(0, 12, 48), False, None),
+        "no-box": (rand(2, 200, 25.0), rand(2, 333, 25.0), boxes(2, 0.0),
+                   lin(0, 12, 48), False, None),
+        "1-bin": (small, small, boxes(2, 25.0), lin(0, 12, 1), True, None),
+        "512-bins": (small, small, boxes(2, 25.0), lin(0, 12, 512), True,
+                     None),
+        "masked-frame": (rand(3, 120, 25.0), rand(3, 80, 25.0),
+                         boxes(3, 25.0), lin(0, 12, 48), False,
+                         torch.tensor([1.0, 1.0, 0.0], device=dev)),
+        "triclinic-frame": (rand(3, 120, 25.0), rand(3, 80, 25.0), tric,
+                            lin(0, 12, 48), False,
+                            torch.ones(3, device=dev)),
+    }
+    rows, worst = {}, 0.0
+    for name, (a, b, bx, edges, excl, mask) in cases.items():
+        nbins = edges.shape[0] - 1
+        lengths = bx[:, :3].contiguous()
+        l0 = fd.pair_histogram.launches
+
+        def kernel():
+            if mask is None:
+                return fd.pair_histogram(a, b, box=bx, exclude_self=excl,
+                                         edges=edges)
+            return fd.pair_histogram_batch(a, b, bx, mask, edges,
+                                           exclude_self=excl)[0]
+
+        out1, out2 = kernel(), kernel()
+        plain, p_ms = event_ms(lambda: fd.pair_histogram_plain(
+            a, b, lengths, edges, excl))
+        launches = fd.pair_histogram.launches - l0
+        check(torch.equal(out1, out2) or (torch.isnan(out1).all()
+                                          and torch.isnan(out2).all()),
+              f"{name}: two launches differ (not deterministic)")
+        if name == "triclinic-frame":
+            check(torch.isnan(out1).all().item(),
+                  f"{name}: the triclinic frame did not come out NaN")
+            # the orthorhombic frames, launched alone, still agree
+            sub = [0, 2]
+            got = fd.pair_histogram(a[sub], b[sub], box=bx[sub],
+                                    edges=edges)
+            want = plain[sub]
+        elif mask is not None:
+            got, want = out1, mask @ plain
+        else:
+            got, want = out1, plain
+        block = want.sum(0) if want.dim() == 2 else want
+        check(bool((block.max() < 2 ** 24).item()),
+              f"{name}: a bin of the block reached 2^24 counts; float32 "
+              "is not exact there")
+        n_diff = check_envelope(name, got.cpu().numpy(), want.cpu().numpy())
+        err = (got - want).abs().max().item()
+        worst = max(worst, err)
+        big = name.startswith("main")
+        k_ms = time_ms(kernel, 5 if big else 20)
+        if not big:
+            p_ms = time_ms(lambda: fd.pair_histogram_plain(
+                a, b, lengths, edges, excl), 5)
+        b_ms, b_by = ph_bound_ms(a, b, nbins, plain.cpu().numpy(), bw, flops)
+        rows[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                          bound_by=b_by, max_abs_err=err)
+        print(f"pair_histogram {name}: B={a.shape[0]} N={a.shape[1]} "
+              f"M={b.shape[1]} nbins={nbins} exclude_self={excl} "
+              f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}) launches={launches} "
+              f"bins_differing={n_diff} max_abs={err:.3g} "
+              f"max_block_bin={float(block.max()):.0f} bit_identical=True")
+    return rows, worst
+
+
 # ---------------------------------------------------------------- phase 4
 
 def make_system(n_atoms, n_frames, seed=0):
@@ -456,6 +668,93 @@ def phase_end_to_end(card):
     return launches
 
 
+# ---------------------------------------------------------------- phase 5
+
+def phase_rdf(card, u, ow, main_row):
+    """Phase 5: InterRDF of config 4 at full width → its launches."""
+    import torch
+
+    from mdanalysis_mpi_tpu_torch.analysis import InterRDF
+    from mdanalysis_mpi_tpu_torch.ops import fused_distances as fd
+
+    run_kw = dict(backend="torch", device="cuda", batch_size=RDF_BATCH)
+    n = ow.n_atoms
+    check(n == RDF_WATERS and u.trajectory.n_frames == RDF_FRAMES,
+          f"water system has {n} oxygens, {u.trajectory.n_frames} frames")
+    pairs = RDF_FRAMES * n * (n - 1)
+
+    def main_path():
+        """One run with the kernel's count set to 0 just before and read
+        just after → (analysis, wall s, launches)."""
+        torch.cuda.synchronize()
+        fd.pair_histogram.launches = 0
+        t0 = time.perf_counter()
+        r = InterRDF(ow, ow).run(**run_kw)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0, fd.pair_histogram.launches
+
+    first, wall1, launches = main_path()
+    n_blocks = -(-RDF_FRAMES // RDF_BATCH)
+    check(launches == n_blocks,
+          f"pair-histogram launches {launches}, expected {n_blocks}")
+    check(first._resolved_engine == "pallas",
+          f"'auto' resolved to {first._resolved_engine!r} on the card")
+    raw = first._last_total[0]
+    check(isinstance(raw, torch.Tensor) and raw.device.type == "cuda",
+          "the count partials are not a tensor on the card")
+    count, rdf = first.results.count, first.results.rdf
+    check(count.shape == (75,) and rdf.shape == (75,)
+          and np.isfinite(rdf).all() and count.sum() > 0,
+          f"InterRDF result shape {count.shape} / non-finite values")
+    again, wall2, launches2 = main_path()
+    check(launches2 == n_blocks, f"repeat launched {launches2} times")
+    check(np.array_equal(count, again.results.count)
+          and np.array_equal(rdf, again.results.rdf),
+          "InterRDF repeat not bit-identical")
+    share = main_row["ms"] * n_blocks / 1e3 / wall2
+    print(f"rdf main path: InterRDF(ow, ow) {n} oxygens x {RDF_FRAMES} "
+          f"frames, batch {RDF_BATCH}, nbins 75, range (0, 15): launches "
+          f"{launches}; first run wall {wall1:.3f} s ({RDF_FRAMES / wall1:.1f} "
+          f"frames/s, {pairs / wall1:.4g} pairs/s); repeat wall "
+          f"{wall2:.3f} s ({RDF_FRAMES / wall2:.1f} frames/s, "
+          f"{pairs / wall2:.4g} pairs/s), bit-identical; kernel share of "
+          f"the repeat's wall {100 * share:.1f}% ({n_blocks} x "
+          f"{main_row['ms']:.3f} ms) on {card}; g(r) peak "
+          f"{rdf.max():.3f} at r = {first.results.bins[rdf.argmax()]:.2f} A")
+
+    t0 = time.perf_counter()
+    xla = InterRDF(ow, ow, engine="xla").run(**run_kw)
+    x_count, x_rdf = xla.results.count, xla.results.rdf
+    t_xla = time.perf_counter() - t0
+    c_rel = np.abs(count - x_count) / np.maximum(np.abs(x_count), 1e-30)
+    r_rel = np.abs(rdf - x_rdf) / np.maximum(np.abs(x_rdf), 1e-30)
+    print(f"rdf kernel vs engine='xla' on the card (all {RDF_FRAMES} frames, "
+          f"xla wall {t_xla:.3f} s): max rel d count {c_rel.max():.3g}, "
+          f"max rel d g(r) {r_rel.max():.3g} (limit 1e-5 each), "
+          f"{int((count != x_count).sum())} bins differ")
+    check(c_rel.max() <= 1e-5 and r_rel.max() <= 1e-5,
+          "kernel route vs engine='xla' outside 1e-5")
+
+    uo, owo = make_water(ORACLE_WATERS, ORACLE_BOX, ORACLE_FRAMES)
+    kw = dict(nbins=75, range=(0.0, 10.0))
+    oracle = InterRDF(owo, owo, **kw).run(backend="serial")
+    fd.pair_histogram.launches = 0
+    kern = InterRDF(owo, owo, **kw).run(backend="torch", device="cuda",
+                                        batch_size=RDF_BATCH)
+    check(fd.pair_histogram.launches > 0,
+          "the oracle-shape run did not launch the kernel")
+    d_g = np.abs(kern.results.rdf - oracle.results.rdf).max()
+    d_c = kern.results.count - oracle.results.count
+    print(f"rdf kernel vs serial float64 oracle ({ORACLE_WATERS} waters, "
+          f"{ORACLE_BOX} A box, {ORACLE_FRAMES} frames, nbins 75, range "
+          f"(0, 10)): max |d g(r)| {d_g:.3g} (limit 0.05); counts: "
+          f"{int((d_c != 0).sum())} bins differ, max |d| "
+          f"{np.abs(d_c).max():.0f}, total {kern.results.count.sum():.0f} "
+          f"vs {oracle.results.count.sum():.0f}")
+    check(d_g < 0.05, f"kernel route vs oracle: max |d g(r)| = {d_g:.3g}")
+    return launches
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "mdanalysis_mpi_tpu_torch")):
         print("FAIL: chip_smoke.py must run from a checkout of the "
@@ -466,20 +765,32 @@ def main():
     try:
         card = phase_device()
         phase_build()
-        rows, worst = phase_kernels(card.split(",")[0].strip())
+        card_name = card.split(",")[0].strip()
+        rows, worst = phase_kernels(card_name)
+        t0 = time.perf_counter()
+        u, ow = make_water(RDF_WATERS, RDF_BOX, RDF_FRAMES)
+        print(f"water system: {u.atoms.n_atoms} atoms x {RDF_FRAMES} "
+              f"frames, built in {time.perf_counter() - t0:.1f} s")
+        ph_rows, ph_worst = phase_pair_histogram(card_name, ow)
         launches = phase_end_to_end(card)
+        ph_launches = phase_rdf(card, u, ow, ph_rows["main"])
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", file=sys.stderr)
         return 1
     import torch
 
-    main_row = rows["main-int16"]
-    print(json.dumps({"kernels": [{
-        "name": KERNEL_NAME, "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": worst, "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"], "library_ms": None}]}))
+    def entry(name, source, replaces, launches, worst, row):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": worst, "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": None}
+
+    print(json.dumps({"kernels": [
+        entry(KERNEL_NAME, KERNEL_SOURCE, KERNEL_REPLACES, launches, worst,
+              rows["main-int16"]),
+        entry(PH_NAME, PH_SOURCE, PH_REPLACES, ph_launches, ph_worst,
+              ph_rows["main"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -135,6 +135,11 @@ def load() -> ctypes.CDLL:
             vp, ci, vp,              # partials, nsplit, rot
             vp, ci, vp,              # chunks, nchunk, out
             vp]                      # stream
+        lib.mdtpu_pair_histogram.restype = ci
+        lib.mdtpu_pair_histogram.argtypes = [
+            vp, vp, vp, vp,          # a, b, lengths, edges
+            ci, ci, ci, ci, ci,      # B, N, M, nbins, exclude_self
+            vp, vp]                  # counts, stream
         lib.mdtpu_cuda_error_string.restype = ctypes.c_char_p
         lib.mdtpu_cuda_error_string.argtypes = [ci]
         _lib = lib

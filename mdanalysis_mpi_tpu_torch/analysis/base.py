@@ -65,6 +65,30 @@ def _materialize(value):
     return to_numpy(value)
 
 
+def deferred_group(finalize):
+    """Deferreds over the keys of one shared memoized ``finalize()``.
+
+    ``finalize`` computes a dict of results in a single (device-fetching)
+    pass; ``deferred_group(finalize)["key"]`` is a :class:`Deferred`
+    that runs it at most once and picks out ``key``.  The common
+    ``_conclude`` shape: several result keys, one readback.
+    """
+    state = {}
+
+    def _run():
+        if not state:
+            state.update(finalize())
+        return state
+
+    class _Group(dict):
+        def __missing__(self, key):
+            d = Deferred(lambda: _run()[key])
+            self[key] = d
+            return d
+
+    return _Group()
+
+
 class Results(dict):
     """Attribute-accessible results container (the ``.results`` idiom of
     the serial oracle, RMSF.py:9-15).
@@ -194,6 +218,9 @@ class AnalysisBase:
         self.n_frames = len(frames)
         self._frame_indices = frames
         executor = get_executor(backend, **executor_kwargs)
+        # the run's device (None on the serial backend), for analyses
+        # whose engine choice depends on it
+        self._run_device = getattr(executor, "device", None)
         self._prepare()
         total = executor.execute(self, self._universe.trajectory, frames,
                                  batch_size=batch_size)

@@ -8,8 +8,8 @@ and staged blocks as their numpy bytes.  On the CPU the port's wrapper
 runs the kernel's plain version, so these tests hold that plain version
 (the CUDA kernel's arithmetic) to the TPU kernel.  Tolerances are those
 of tests/test_pallas_fused.py: 5e-4 on the mean, 5e-3 on M2 and on the
-pass-1 sums.  The ``cuda``-marked test holds the CUDA kernel to its
-plain version and runs only where a GPU is present.
+pass-1 sums.  The CUDA kernel itself is held to its plain version by
+tests/test_torch_cuda.py, which runs where a GPU is present.
 """
 
 import numpy as np
@@ -264,46 +264,8 @@ def test_kernel_build_is_keyed_by_its_sources():
     """The build finds the CUDA source and keys the library by a hash
     of the sources and flags (nothing is compiled here)."""
     assert [s.rsplit("/", 1)[-1] for s in _build.sources()] == [
-        "fused_rmsf.cu"]
+        "fused_rmsf.cu", "pair_histogram.cu"]
     path = _build.library_path()
     assert path.endswith(_build.LIB_NAME)
     assert path == _build.library_path()
     assert "build" in path.split("/")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,n_real,dtype,valid_b", MATRIX + [
-    (1, 300, "int16", None), (56, 3000, "float32", 50)])
-def test_cuda_kernel_matches_plain(B, n_real, dtype, valid_b):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
-    r = np.random.default_rng(B + n_real)
-    pidx, nr = fr.pad_selection(np.arange(n_real))
-    S = len(pidx)
-    coords = (r.normal(scale=15.0, size=(B, S, 3))).astype(np.float32)
-    if dtype == "float32":
-        qp, inv = np.ascontiguousarray(np.moveaxis(coords, 2, 0)), 1.0
-    else:
-        from mdanalysis_mpi_tpu_torch.staging import quantize_block
-
-        qp, inv = quantize_block(coords, dtype, layout="planar")
-    params = fr.build_params(r.normal(size=(nr, 3)) * 4, np.zeros(3),
-                             r.uniform(1, 12, size=nr), nr, S)
-    wN, refc_p, _, amask, sref = (p.cuda() for p in params)
-    mask = np.zeros(B, np.float32)
-    mask[:B if valid_b is None else valid_b] = 1.0
-    args = (_t(qp).cuda(), float(inv), wN, refc_p, amask, sref,
-            _t(mask).cuda())
-    n0 = fp.planar_sums.launches
-    out = fp.planar_sums(*args)
-    again = fp.planar_sums(*args)
-    plain = fp.planar_sums_plain(*args)
-    torch.cuda.synchronize()
-    assert fp.planar_sums.launches == n0 + 2
-    assert torch.equal(out, again)
-    T = float(mask.sum())
-    torch.testing.assert_close(out[:3] / T, plain[:3] / T, rtol=0,
-                               atol=5e-4)
-    torch.testing.assert_close(out[3:] - out[:3] ** 2 / T,
-                               plain[3:] - plain[:3] ** 2 / T, rtol=0,
-                               atol=5e-3)

@@ -77,6 +77,17 @@ assert q.shape == (3, 8, ca.n_atoms) and q.dtype == np.int16
 r = AlignedRMSF(u2, select="name CA", engine="fused").run(
     backend="torch", device="cpu", batch_size=8, transfer_dtype="int16")
 assert np.isfinite(r.results.rmsf).all()
+# the RDF slice on the CPU: the kernel route runs the kernel's plain
+# version, and nothing of JAX is imported on the way
+from mdanalysis_mpi_tpu_torch.analysis import (ContactMap, InterRDF,
+                                               InterRDF_s, PairwiseDistances)
+from mdanalysis_mpi_tpu_torch.ops import distances, fused_distances
+from mdanalysis_mpi_tpu_torch.testing import make_water_universe
+uw = make_water_universe(n_waters=27, n_frames=4, box=9.3)
+ow = uw.select_atoms("name OW")
+g = InterRDF(ow, ow, nbins=12, range=(0.0, 4.5), engine="pallas").run(
+    backend="torch", device="cpu", batch_size=2)
+assert np.isfinite(g.results.rdf).all() and g.results.count.sum() > 0
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "mdanalysis_mpi_tpu")
              or m.startswith(("jax.", "jaxlib.", "mdanalysis_mpi_tpu.")))
@@ -91,7 +102,11 @@ if not torch.cuda.is_available():
                      backend="torch", batch_size=8),
                  lambda: AlignedRMSF(u2, select="name CA").run(),
                  lambda: AverageStructure(u2, select="name CA").run(),
-                 lambda: RMSF(ca).run()):
+                 lambda: RMSF(ca).run(),
+                 lambda: InterRDF(ow, ow).run(),
+                 lambda: InterRDF_s(uw, [(ow[:2], ow[2:4])]).run(),
+                 lambda: ContactMap(ow).run(),
+                 lambda: PairwiseDistances(ow).run()):
         try:
             call()
         except RuntimeError as exc:
