@@ -10,14 +10,20 @@ the JAX package's ``ops/pallas_distances.py``).
   frames, since the kernel's grid spans A tiles × B tiles × frames.
 - :func:`pair_histogram_plain` is the kernel's plain version: the same
   arithmetic in torch ops, one frame and one tile of group B at a time,
-  so its peak memory is O(N·tile).  Its distances equal the kernel's bit
-  for bit (the kernel writes every step with round-to-nearest
-  intrinsics, so nothing is contracted into an FMA), so the counts are
-  equal.
+  so its peak memory is O(N·tile).  Its squared distances equal the
+  kernel's bit for bit (the kernel writes every step with
+  round-to-nearest intrinsics, so nothing is contracted into an FMA,
+  and wraps without a division only where that is exact), and the
+  kernel's range and bin tests on the squared distance are exact
+  rewrites of these on the distance, so the counts are equal.
 - :func:`pair_histogram_batch` is the RDF batch function: per-frame
   histograms from one launch, triclinic frames poisoned with NaN, then
   the frame mask and box volumes of
   :func:`mdanalysis_mpi_tpu_torch.ops.distances.fold_frame_histograms`.
+- :func:`wrap_nodiv` and :func:`squared_edge_thresholds` are the
+  kernel's two exact rewrites in torch (the minimum image without a
+  division, the range and bins on the squared distance), so the CPU
+  tests can hold them to the plain version's algebra.
 
 The kernel replaces ``mdanalysis_mpi_tpu/ops/pallas_distances.py::
 _build_kernel`` (``pl.pallas_call`` at :164).  Its wrap is orthorhombic
@@ -74,6 +80,52 @@ def _lengths(box, B: int, device) -> torch.Tensor:
         return torch.zeros((B, 3), dtype=torch.float32, device=device)
     box = torch.as_tensor(box, device=device).to(torch.float32)
     return box.reshape(-1, 6)[:, :3].expand(B, 3).contiguous()
+
+
+def wrap_nodiv(d: torch.Tensor, L) -> torch.Tensor:
+    """The kernel's minimum image on one axis, for a box length ``L > 0``:
+    equals ``d - torch.round(d / L) * L`` (up to the sign of a zero, which
+    the square removes) without the division where ``|d| < L``.
+
+    For ``L`` in ``[2^-64, FLT_MAX]`` let ``h = 0.5 * L`` (exact): ``d``
+    where ``|d| <= h``, ``d - copysign(L, d)`` where ``h < |d| < L``, and
+    the division form where ``|d| >= L``.  An infinite or tinier ``L``
+    takes the division form everywhere, as the kernel does."""
+    L = torch.as_tensor(L, dtype=d.dtype, device=d.device)
+    ad = d.abs()
+    div = d - torch.round(d / L) * L
+    out = torch.where(ad < L, d - torch.copysign(L, d), div)
+    out = torch.where(ad <= 0.5 * L, d, out)
+    regular = (L >= 2.0 ** -64) & torch.isfinite(L)
+    return torch.where(regular, out, div)
+
+
+def squared_edge_thresholds(edges: torch.Tensor) -> torch.Tensor:
+    """For float32 ``edges`` the thresholds ``t_k``: the smallest float32
+    ``t >= 0`` with ``sqrt(t) >= e_k`` (0 where ``e_k <= 0``, NaN for a
+    NaN edge).  ``sqrt`` rounded to nearest is monotone, so
+    ``sqrt(d2) >= e_k`` exactly when ``d2 >= t_k``, and
+    ``searchsorted(t, d2, right=True)`` equals
+    ``searchsorted(edges, sqrt(d2), right=True)``.  The kernel computes
+    the same ``t_k`` in shared memory: from ``e_k * e_k``, stepped by
+    ``nextafter`` until the predicate holds."""
+    e = edges.to(torch.float32)
+    inf = torch.full_like(e, float("inf"))
+    zero = torch.zeros_like(e)
+    t = torch.where(e > 0, e * e, zero)
+    live = e > 0
+    while True:
+        up = live & (torch.sqrt(t) < e)
+        if not bool(up.any()):
+            break
+        t = torch.where(up, torch.nextafter(t, inf), t)
+    while True:
+        p = torch.nextafter(t, zero)
+        down = live & (t > 0) & (torch.sqrt(p) >= e)
+        if not bool(down.any()):
+            break
+        t = torch.where(down, p, t)
+    return torch.where(torch.isnan(e), e, t)
 
 
 def pair_histogram_plain(a, b, lengths, edges, exclude_self: bool = False,

@@ -10,9 +10,14 @@ JAX, so it runs on a GPU machine that has no JAX:
   5e-4 and M2 within 5e-3 of the plain version (tests/test_pallas_fused
   .py's tolerances), two launches bit-identical.
 - ``csrc/pair_histogram.cu`` (``fused_distances.pair_histogram``): the
-  counts EQUAL to the plain version's (the kernel writes every step with
-  round-to-nearest intrinsics in the plain version's order), two
-  launches bit-identical.
+  counts EQUAL to the plain version's (every float step is one
+  round-to-nearest intrinsic and the kernel's division-free minimum
+  image and squared-distance bins are exact rewrites), two launches
+  bit-identical, on every branch of the kernel: unwrapped coordinates
+  (the division branch), ragged self-exclusion, non-uniform edges, a
+  first edge above 0, box-less and infinite axes, NaN coordinates, a
+  centred box and B atoms on both sides of the per-B-atom choice of
+  the division-free form.
 """
 
 import numpy as np
@@ -115,6 +120,79 @@ def test_cuda_pair_histogram_matches_plain(na, nb, box, nbins, excl):
                                     excl)
     torch.cuda.synchronize()
     assert fd.pair_histogram.launches == n0 + 2
+    assert torch.equal(out, again)
+    assert torch.equal(out, plain)
+    assert float(out.sum()) > 0
+
+
+def _pair_case(case, r):
+    """(a, b, boxes (B, 6), edges, exclude_self) of one redesign case,
+    as numpy float32."""
+    L = np.float32(25.0)
+    a = r.uniform(0, L, (2, 1500, 3)).astype(np.float32)
+    b = r.uniform(0, L, (2, 1100, 3)).astype(np.float32)
+    boxes = np.tile(BOX, (2, 1))
+    edges = np.linspace(0.0, 12.0, 76)
+    excl = False
+    if case == "unwrapped":
+        # coordinates over [-L, 2L): pairs with |d| >= L take the
+        # kernel's division branch
+        a += L * r.integers(-1, 2, a.shape).astype(np.float32)
+        b += L * r.integers(-1, 2, b.shape).astype(np.float32)
+    elif case == "self-ragged":
+        # N = 1500 and M = 1100: neither a multiple of the tiles nor of R
+        b = a[:, :1100].copy()
+        excl = True
+    elif case == "self-same":
+        a = a[:, :1037]
+        b = a
+        excl = True
+    elif case == "non-uniform":
+        edges = np.concatenate([[0.0], np.geomspace(0.3, 12.0, 60)])
+    elif case == "edge-above-0":
+        edges = np.linspace(3.5, 12.0, 40)
+    elif case == "box-less-frame":
+        boxes[1, :3] = 0.0
+    elif case == "no-wrap-on-z":
+        boxes[0, 2] = 0.0
+    elif case == "infinite-box":
+        boxes[0, 1] = np.inf
+    elif case == "nan-coordinates":
+        a[0, ::97, 1] = np.nan
+        b[1, ::31, 0] = np.nan
+    elif case == "just-outside-box":
+        # a few atoms at L and slightly below 0: B atoms within reach of
+        # an A atom at |d| >= L take the division form
+        a[:, :5, 0] = L
+        b[:, :5, 2] = np.float32(-1e-6)
+    elif case == "centred-box":
+        # coordinates in [-L/2, L/2): every B atom takes the min form
+        a -= L / 2
+        b -= L / 2
+    elif case == "flag-edge":
+        # an A atom just below L and B atoms within ulps of 0 on both
+        # sides: the per-B-atom choice of form flips among them
+        a[:, 0, 0] = np.nextafter(L, np.float32(0))
+        b[:, :64, 0] = (np.arange(-32, 32) * 1e-6).astype(np.float32)
+    return a, b, boxes, edges.astype(np.float32), excl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "unwrapped", "self-ragged", "self-same", "non-uniform", "edge-above-0",
+    "box-less-frame", "no-wrap-on-z", "infinite-box",
+    "nan-coordinates", "just-outside-box", "centred-box", "flag-edge"])
+def test_cuda_pair_histogram_equals_plain_on_every_branch(case):
+    """The redesigned kernel's rewrites are exact, so its counts EQUAL
+    the plain version's whichever branch a pair takes."""
+    dev = _card()
+    a, b, boxes, edges, excl = _pair_case(case, np.random.default_rng(17))
+    a, b = _t(a).to(dev), _t(b).to(dev)
+    tbox, e = _t(boxes).to(dev), _t(edges).to(dev)
+    out = fd.pair_histogram(a, b, box=tbox, exclude_self=excl, edges=e)
+    again = fd.pair_histogram(a, b, box=tbox, exclude_self=excl, edges=e)
+    plain = fd.pair_histogram_plain(a, b, fd._lengths(tbox, 2, dev), e, excl)
+    torch.cuda.synchronize()
     assert torch.equal(out, again)
     assert torch.equal(out, plain)
     assert float(out.sum()) > 0
