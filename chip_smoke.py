@@ -20,9 +20,16 @@ prints no ok line):
    masked frame tail, padded atoms, int16/int8/float32 planes and a
    per-frame scale.  Holds the moments (mean = Σdev/T within 5e-4, M2
    within 5e-3 — the JAX package's tolerances, tests/test_pallas_fused.py)
-   and requires two launches to agree bit for bit; prints the median
-   kernel and plain times (CUDA events), the bound, the launches and
-   the largest raw difference of the (6, S) sums.
+   and requires two launches to agree bit for bit; prints the kernel's
+   device time per call (``kernel_ms``: the median of its own kernel
+   events under ``torch.profiler`` over 20 calls, beside every kernel
+   the call launches; a profile must record one event per call of each,
+   else it is taken again, up to 5 times), the call's device time with
+   the scratch fill
+   (``queued_ms``: calls queued behind a sleep, CUDA events around each),
+   the wrapper's host wall per call (``call_ms``), the plain version's
+   time, the bound, the launches and the largest raw difference of the
+   (6, S) sums.
 4. End to end at full width: 100,000 atoms (built like bench.py's
    make_system from seed 0), the ``heavy`` selection (50,000 atoms),
    2,048 frames in a MemoryReader, ``batch_size=512``, int16 staging,
@@ -109,6 +116,7 @@ E2E_FRAMES = 2048
 E2E_BATCH = 512
 
 KERNEL_NAME = "fused_aligned_moments"
+KERNEL_SYMBOL = "fused_planar_kernel"      # its CUDA kernel's name
 KERNEL_SOURCE = "mdanalysis_mpi_tpu_torch/csrc/fused_rmsf.cu"
 KERNEL_REPLACES = "mdanalysis_mpi_tpu/ops/pallas_fused.py:289"
 
@@ -260,6 +268,120 @@ def time_ms(fn, reps):
     return statistics.median(times)
 
 
+SLEEP_CYCLES = 60_000_000   # ~30 ms at ~2 GHz: longer than any enqueue
+PROFILE_REPS = 20
+PROFILE_TRIES = 5
+
+
+def short_name(kernel):
+    """``void (anonymous namespace)::fused_planar_kernel<short>(...)`` →
+    ``fused_planar_kernel``."""
+    import re
+
+    m = re.search(r"(\w+)\s*[<(]",
+                  kernel.replace("(anonymous namespace)::", ""))
+    return m.group(1) if m else kernel
+
+
+def profiler_ms(fn, reps):
+    """Device time of each CUDA kernel ``fn`` launches in ``reps``
+    calls, from ``torch.profiler`` kernel events (memsets and fills
+    included) → {short name: (median ms per event, events recorded)}.
+
+    The profile opens with one marker kernel (``torch.cuda._sleep``,
+    ``spin_kernel``), left out of the result: on the H100 the profiler
+    missed the first kernel of a profile in some profiles (19 of 20
+    events of the first kernel of the call, every other kernel 20)."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = collections.defaultdict(list)
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            times[short_name(e.name)].append(e.time_range.elapsed_us() / 1e3)
+    return {n: (statistics.median(t), len(t)) for n, t in times.items()
+            if "spin" not in n and "sleep" not in n}
+
+
+def kernel_split(fn, reps=PROFILE_REPS):
+    """:func:`profiler_ms` with every kernel's event count held to
+    ``reps``: the profiler can miss an event, and a profile that did is
+    taken again, up to ``PROFILE_TRIES`` times, before the check fails."""
+    for _ in range(PROFILE_TRIES):
+        split = profiler_ms(fn, reps)
+        if split and all(n == reps for _, n in split.values()):
+            return split
+        counts = {k: n for k, (_, n) in split.items()}
+        print(f"note: the profile recorded {counts} kernel events of "
+              f"{reps} calls; profiling again")
+    raise SmokeFailure(f"the profiler recorded {counts} kernel events of "
+                       f"{reps} calls in each of {PROFILE_TRIES} profiles")
+
+
+def fused_timing(args):
+    """Device and host time of one ``planar_sums`` call on ``args`` →
+    (kernel split as :func:`kernel_split`, queued device ms of the call,
+    largest gap between queued calls, host wall ms per call)."""
+    from mdanalysis_mpi_tpu_torch.ops import fused_planar as fp
+
+    def call():
+        return fp.planar_sums(*args)
+
+    call()
+    split = kernel_split(call)
+    q_ms, _, _, gap = queued_ms(call, PROFILE_REPS)
+    return split, q_ms, gap, call_ms(call, PROFILE_REPS)
+
+
+def split_text(split):
+    return ", ".join(f"{n} {ms:.4f} ({k})" for n, (ms, k) in
+                     sorted(split.items(), key=lambda kv: -kv[1][0]))
+
+
+def queued_ms(fn, reps):
+    """Per-call device ms of ``fn`` run back to back behind a sleep, CUDA
+    events around each call alone → (median, least, greatest, largest
+    gap between one call's end and the next one's start)."""
+    import torch
+
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for a, b in ev:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    times = [a.elapsed_time(b) for a, b in ev]
+    gaps = [ev[i][1].elapsed_time(ev[i + 1][0]) for i in range(reps - 1)]
+    return (statistics.median(times), min(times), max(times),
+            max(gaps, default=0.0))
+
+
+def call_ms(fn, reps):
+    """Host wall ms per call of ``fn`` (no synchronise inside)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
 def bound_ms(args, bw, flops):
     qp, inv, wN, refc_p, amask, sref, fmask = args
     _, B, S = qp.shape
@@ -311,18 +433,23 @@ def phase_kernels(card_name):
         m2_err = (m2 - m2_plain).abs().max().item()
         check(mean_err <= 5e-4, f"{name}: mean differs by {mean_err:.3g}")
         check(m2_err <= 5e-3, f"{name}: M2 differs by {m2_err:.3g}")
-        k_ms = time_ms(lambda: fp.planar_sums(*args), 50)
-        p_ms = time_ms(lambda: fp.planar_sums_plain(*args), 5)
         launches = fp.planar_sums.launches - l0
+        split, q_ms, gap, c_ms = fused_timing(args)
+        check(KERNEL_SYMBOL in split, f"{name}: no {KERNEL_SYMBOL} kernel "
+              f"event in the profile ({sorted(split)})")
+        k_ms = split[KERNEL_SYMBOL][0]
+        p_ms = time_ms(lambda: fp.planar_sums_plain(*args), 5)
         b_ms, b_by = bound_ms(args, bw, flops)
         worst = max(worst, raw)
         rows[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                           bound_by=b_by, max_abs_err=raw)
         print(f"kernel {name}: B={B} S={qp.shape[2]} {dtype} valid={valid} "
-              f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+              f"kernel_ms={k_ms:.4f} queued_ms={q_ms:.4f} "
+              f"(gap {gap:.4f}) call_ms={c_ms:.4f} plain_ms={p_ms:.4f} "
               f"bound_ms={b_ms:.4f} ({b_by}) launches={launches} "
               f"raw_max_abs={raw:.3g} mean_err={mean_err:.3g} "
-              f"m2_err={m2_err:.3g} bit_identical=True")
+              f"m2_err={m2_err:.3g} bit_identical=True; device ms "
+              f"(events): {split_text(split)}")
         del args, out1, out2, plain
     return rows, worst
 
@@ -573,8 +700,10 @@ def wire_frames(u, sel_p, n_sel, n_frames, bs, wire):
     return x[:n_frames, :n_sel]
 
 
-def phase_end_to_end(card):
-    """Phase 4: config 2 of the reference at full width, 2,048 frames."""
+def e2e_main_runs(card):
+    """Phase 4's main path: the system, one fused int16 AlignedRMSF run
+    and its repeat on a side stream (bit-identical) → (universe,
+    selection indices, RMSF, the runs' walls and launches)."""
     import torch
 
     from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
@@ -582,7 +711,7 @@ def phase_end_to_end(card):
     from mdanalysis_mpi_tpu_torch.ops.fused_rmsf import pad_selection
 
     n_atoms, n_frames, bs = E2E_ATOMS, E2E_FRAMES, E2E_BATCH
-    n32, sel = 32, "heavy"
+    sel = "heavy"
     run_kw = dict(backend="torch", batch_size=bs, device="cuda")
     t0 = time.perf_counter()
     u = make_system(n_atoms, n_frames, seed=0)
@@ -650,7 +779,22 @@ def phase_end_to_end(card):
           f"{n_frames / wall2:.1f} frames/s (pass 1 {t2_pass1:.3f} s, "
           f"pass 2 {wall2 - t2_pass1:.3f} s), bit-identical to the first "
           f"run")
+    runs = dict(launches=launches, pass1_launches=pass1, wall=wall,
+                pass1=t_pass1, pass2=wall - t_pass1, repeat_wall=wall2,
+                repeat_pass1=t2_pass1, repeat_pass2=wall2 - t2_pass1,
+                frames=n_frames)
+    return u, idx, rmsf, runs
 
+
+def phase_end_to_end(card):
+    """Phase 4: config 2 of the reference at full width, 2,048 frames."""
+    from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
+    from mdanalysis_mpi_tpu_torch.ops.fused_rmsf import pad_selection
+
+    u, idx, rmsf, runs = e2e_main_runs(card)
+    n_frames, bs = E2E_FRAMES, E2E_BATCH
+    n32, sel = 32, "heavy"
+    run_kw = dict(backend="torch", batch_size=bs, device="cuda")
     generic = AlignedRMSF(u, select=sel).run(
         transfer_dtype="int16", **run_kw)
     err = np.abs(rmsf - generic.results.rmsf).max()
@@ -687,7 +831,7 @@ def phase_end_to_end(card):
         check(err_g <= tol_generic,
               f"{wire}: fused vs generic differ by {err_g:.3g}")
         check(err_o <= 5e-2, f"{wire}: fused vs oracle differ by {err_o:.3g}")
-    return launches
+    return runs["launches"]
 
 
 # ---------------------------------------------------------------- phase 5

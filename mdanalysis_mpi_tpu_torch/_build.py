@@ -132,8 +132,8 @@ def load() -> ctypes.CDLL:
             vp, ci, ci, ci,          # qp, dtype, B, S
             vp, cf,                  # inv, inv_scalar
             vp, vp, vp, vp, vp,      # w, ref, amask, fmask, sref
-            vp, ci, vp,              # partials, nsplit, rot
-            vp, ci, vp,              # chunks, nchunk, out
+            ci, ci, ci, ci,          # slice, blocks, group, stages
+            vp, vp,                  # scratch, out
             vp]                      # stream
         lib.mdtpu_pair_histogram.restype = ci
         lib.mdtpu_pair_histogram.argtypes = [

@@ -1,6 +1,7 @@
 // Fused aligned-moments kernel for Hopper (sm_90a): dequant + per-frame
 // COM and Kabsch correlation + QCP rotation + deviation moments over a
-// planar (3, B, S) staged block.
+// planar (3, B, S) staged block, in one cooperative launch that reads the
+// block from device memory once.
 //
 // Replaces the TPU kernel mdanalysis_mpi_tpu/ops/pallas_fused.py
 // (_build_planar, pl.pallas_call at :289; rotation _qcp_rotation
@@ -15,50 +16,294 @@
 //   out[0:3, s] = sum_f fmask[f] * dev
 //   out[3:6, s] = sum_f fmask[f] * dev^2
 //
-// Bound on the card: one read of the staged block, 3*B*S*sizeof(q)
-// bytes (int16 at B = 512, S = 50176: 154.1 MB); the arithmetic is
-// ~40 flops per element, far below the H100's float32 rate.  So the
-// kernel is bound by bytes.
+// Bound on the card: bytes.  The block read once, 3*B*S*sizeof(q), the
+// per-atom arrays (w, ref, amask: 20 B an atom) and the (6, S) output
+// written once: int16 at B = 512, S = 50,176 is 156.5 MB, 46.7 us at
+// 3.35 TB/s; its ~63 operations per atom-frame take 24 us at the float32
+// rate.
 //
-// Design (a simple, correct first form; it reads the block twice):
-//   A. frame_sums: grid (B, nsplit).  Each block reduces one frame's
-//      slice of S into the 12 float32 sums (sum w*x_i, sum x_i*ref_j)
-//      with a fixed-order warp-shuffle + shared-memory tree and writes
-//      them to scratch (B, nsplit, 12).
-//   B. rotation: one thread per frame adds the nsplit partials in index
-//      order, applies the com (x) sref fix-up, runs QCP with the exact
-//      constants of _qcp_rotation and writes R (9) and com (3).
-//   C. moments: threads over atoms; each walks the frames of its frame
-//      chunk in order (frame tiles of R, com, inv and fmask staged in
-//      shared memory) and keeps sum dev and sum dev^2 in registers; one
-//      write of (6, S) per chunk.
-//   D. chunk_sum: when C split the frames into chunks to fill the card,
-//      adds the per-chunk (6, S) partials in chunk order.
-// No float atomics anywhere: every sum has a fixed order, so the output
-// is bit-identical from run to run.  Any B >= 1 and S >= 1 run here; a
-// one-read form (frame tiles resident in shared memory, TMA) is later
-// work.
+// Design.  One block per SM (blocks <= SM count, co-resident because
+// the launch is cooperative), each owning a contiguous slice of atoms,
+// a multiple of 16 (so every row of a slice is 16-byte aligned for int8,
+// int16 and float32; the wrapper requires S % 256 == 0).  Frames go in
+// groups of G through a ring of `stages` shared-memory stages, each
+// (3, G, slice).  Each block has 15 warps with fixed roles, handing work
+// over through mbarriers in shared memory and never through a block-wide
+// barrier:
+//   - loader (warp 13): one cp.async.bulk per row of the slice (3*G per
+//     group) into the group's stage, completion on its mbarrier; a stage
+//     is refilled once the moments warps have read it.  The staged block
+//     crosses device memory once.
+//   - sums (warps 1-6): two frames per warp, lanes over 4-atom chunks,
+//     the 12 sums (sum w*q_i, sum q_i*ref_j) on the raw quantized values
+//     (int16/int8 become exact floats by a 2^23 bias and a byte permute:
+//     I2F runs at a quarter of the integer rate), w and ref of a slice of
+//     up to 384 atoms held in registers; a transpose butterfly (16
+//     shuffles for 12 values); each sum stored to part[(f*12+k)*blocks +
+//     block].
+//   - frame solver (warp 0): frame f is solved by block f % blocks.  It
+//     reads the blocks' 12 partials of the frame (lane-strided, then a
+//     fixed butterfly: block order never depends on timing), applies the
+//     scale and the com (x) sref fix-up, runs qcp_rotation (unchanged
+//     from the four-stage form) on one thread and stores the frame's
+//     record: R, com, scale, fmask.
+//   - rotations (warp 14): a group's records into one of four buffers in
+//     shared memory.
+//   - moments (warps 7-12): two atoms per thread; per group, once its
+//     records are in, each atom's sum dev and sum dev^2 (accumulators in
+//     shared memory) over the frames in order.  One write of (6, slice)
+//     at the end, amask applied there.
+// Cross-block exchange without flags: the wrapper fills part and the
+// records with the bit pattern 0xffffffff, a NaN no arithmetic produces
+// (stored NaNs are made canonical), and writers store each value with
+// one relaxed 32-bit store; a reader polls the values themselves until
+// none is unset.  One L2 round trip per hop, no fence on the compute
+// warps.  Every sum has a fixed order (per atom: frames 0..B-1; per
+// frame: chunks, butterflies, blocks in index order), so the output is
+// bit-identical from run to run with no float atomics.
+//
+// Worked sizing (ops/fused_planar.fused_geometry), H100, 132 SMs, S =
+// 50,176: slice 384 atoms, 131 blocks; int16 G = 12 (a stage is
+// 3*12*384*2 = 27,648 B), int8 G = 24 and float32 G = 6 (the same
+// bytes); 7 stages; 40 B an atom of parameters and accumulators: 212,480
+// B of the 232,448 a block may use (int16).  Partials (B, 12, blocks):
+// 3.2 MB, resident in L2.  Where even one frame a group in two stages
+// does not fit (a slice above 4,448 atoms at int16, 5,024 at int8, 3,616
+// at float32: S above 587,008 / 663,040 / 477,184 atoms on 132 SMs) the
+// wrapper raises.
+//
+// Measured (chip_smoke.py phase 3, NVIDIA H100 80GB HBM3 at 700.00 W):
+// main shape, the median of 20 torch.profiler kernel events, 20 of 20
+// recorded: int16 0.1319 ms, int8 0.1115; float32, the call with its
+// scratch fill (CUDA events around each of 20 queued calls), 0.2032.
+// The four-stage form it replaces, int16: its four kernels 0.2197 ms,
+// the call 0.2284 (scripts/fused_rmsf_ab.py, same card).
+// What holds it back is latency, not bytes (scripts/fused_rmsf_trace.py):
+// a stage returns to the loader only after its group's rotations are
+// in, and that cycle (copy, sums, the exchange, QCP ~5 us a frame on one
+// thread, the exchange back, moments) takes ~20 us while the ring holds
+// ~84 frames.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kFrameTile = 64;
-constexpr int kFrameVals = 14;   // R (9), com (3), inv, fmask
+// Warp roles (see the header).
+constexpr int kSolverWarp = 0;
+constexpr int kSumWarps = 6;       // warps 1-6: per-frame sums
+constexpr int kMomentWarps = 6;    // warps 7-12: per-atom moments
+constexpr int kFirstSumWarp = 1;
+constexpr int kFirstMomentWarp = kFirstSumWarp + kSumWarps;
+constexpr int kComputeWarps = kSumWarps + kMomentWarps;
+constexpr int kComputeThreads = kComputeWarps * 32;
+constexpr int kMomentThreads = kMomentWarps * 32;
+constexpr int kLoaderWarp = kFirstMomentWarp + kMomentWarps;
+constexpr int kRotWarp = kLoaderWarp + 1;
+constexpr int kThreads = kComputeThreads + 96;
+constexpr int kRotBuffers = 4;     // groups of frame records in flight
+// a slice of up to this many 4-atom chunks per lane keeps each compute
+// lane's w and ref in registers for the sums (384 atoms)
+constexpr int kRegChunks = 3;
 constexpr int kNewtonIters = 40;
+constexpr int kRot = 16;          // per frame: R (9), com (3), scale, fmask
+constexpr int kMaxGroup = 24;
+constexpr int kMaxStages = 12;
+constexpr int kMaxBlocks = 160;
+constexpr int kSmemMax = 232448;
+constexpr unsigned kFull = 0xffffffffu;
+// The scratch is filled with this bit pattern before the launch: a NaN
+// no arithmetic produces (the card's NaN is 0x7fffffff; stored NaNs are
+// made canonical), so a reader polls each value until it differs.
+constexpr unsigned kUnset = 0xffffffffu;
+// a wait that lasts this many SM clocks (~20 s) traps instead of hanging
+constexpr long long kSpinLimit = 40000000000LL;
 
-template <typename T>
-__device__ __forceinline__ float load_f(const T* p) {
-  return static_cast<float>(__ldg(p));
+struct Args {
+  const void* qp;
+  int B, S;
+  const float* inv;
+  float inv_scalar;
+  const float* w;
+  const float* ref;
+  const float* amask;
+  const float* fmask;
+  const float* sref;
+  int slice, blocks, group, stages;
+  float* part;        // (B, 12, blocks), kUnset on entry
+  float* rot;         // (B, kRot), kUnset on entry
+  float* out;         // (6, S)
+};
+
+// Shared memory: mbarriers (512 B), kRotBuffers buffers of the frame
+// records of a group (4 x G x 16 floats); then w, ref0, ref1, ref2 and
+// the six accumulators (10 float planes of `slice`); then the ring of
+// stages, each (3, G, slice) of T.  The wrapper sizes its geometry with
+// the same count (fused_planar.fused_smem_bytes); this layout is the
+// authority: the entry point refuses a geometry beyond kSmemMax.
+__host__ __device__ inline int fixed_bytes(int group) {
+  return 512 + group * kRotBuffers * kRot * 4;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+__host__ __device__ inline long long smem_bytes(int slice, int group,
+                                                int stages, int elem) {
+  return fixed_bytes(group) + 40LL * slice +
+         static_cast<long long>(stages) * 3 * group * slice * elem;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long t0 = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > kSpinLimit) __trap();
+  } while (!done);
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Strong (relaxed, gpu scope) 32-bit accesses: each value is written
+// once and read whole, never torn.
+__device__ __forceinline__ float ld_relaxed(const float* p) {
+  float v;
+  asm volatile("ld.relaxed.gpu.global.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "l"(p)
+               : "memory");
   return v;
+}
+
+__device__ __forceinline__ void st_relaxed(float* p, float v) {
+  // a NaN is stored as the card's own, never as kUnset
+  const float c = v == v ? v : __int_as_float(0x7fffffff);
+  asm volatile("st.relaxed.gpu.global.f32 [%0], %1;\n" ::"l"(p), "f"(c)
+               : "memory");
+}
+
+__device__ __forceinline__ bool unset(float v) {
+  return __float_as_uint(v) == kUnset;
+}
+
+// Pause between polls; past ~20 s of SM clocks, trap instead of hanging.
+__device__ __forceinline__ void poll_pause(long long t0) {
+  if (clock64() - t0 > kSpinLimit) __trap();
+  __nanosleep(20);
+}
+
+// Four consecutive elements → exact float32.  int16 and int8 take the
+// 2^23 bias trick: the element, offset to unsigned, becomes the low
+// mantissa bits of 2^23 (one byte permute), and one subtraction removes
+// the bias (every integer below 2^24 is exact in float32).
+__device__ __forceinline__ void load4(const int16_t* p, float v[4]) {
+  uint2 u = *reinterpret_cast<const uint2*>(p);
+  u.x ^= 0x80008000u;
+  u.y ^= 0x80008000u;
+  v[0] = __int_as_float(__byte_perm(u.x, 0x4B000000u, 0x7410)) - 8421376.0f;
+  v[1] = __int_as_float(__byte_perm(u.x, 0x4B000000u, 0x7432)) - 8421376.0f;
+  v[2] = __int_as_float(__byte_perm(u.y, 0x4B000000u, 0x7410)) - 8421376.0f;
+  v[3] = __int_as_float(__byte_perm(u.y, 0x4B000000u, 0x7432)) - 8421376.0f;
+}
+
+__device__ __forceinline__ void load4(const int8_t* p, float v[4]) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(p) ^ 0x80808080u;
+  v[0] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.0f;
+  v[1] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.0f;
+  v[2] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - 8388736.0f;
+  v[3] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - 8388736.0f;
+}
+
+__device__ __forceinline__ void load4(const float* p, float v[4]) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  v[0] = u.x;
+  v[1] = u.y;
+  v[2] = u.z;
+  v[3] = u.w;
+}
+
+// Two consecutive elements (an even index) → exact float32.
+__device__ __forceinline__ void load2(const int16_t* p, float v[2]) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(p) ^ 0x80008000u;
+  v[0] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7410)) - 8421376.0f;
+  v[1] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7432)) - 8421376.0f;
+}
+
+__device__ __forceinline__ void load2(const int8_t* p, float v[2]) {
+  const uint32_t u = static_cast<uint32_t>(
+                         *reinterpret_cast<const uint16_t*>(p)) ^ 0x8080u;
+  v[0] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.0f;
+  v[1] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.0f;
+}
+
+__device__ __forceinline__ void load2(const float* p, float v[2]) {
+  const float2 u = *reinterpret_cast<const float2*>(p);
+  v[0] = u.x;
+  v[1] = u.y;
+}
+
+// One round of the transpose butterfly below: lanes with bit `o` clear
+// keep values [0, N) and send [N, 2N); the others keep [N, 2N) in
+// slots [0, N) and send [0, N).
+template <int N>
+__device__ __forceinline__ void fold(float v[16], int lane, int o) {
+  const bool up = (lane & o) != 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float send = up ? v[i] : v[i + N];
+    const float keep = up ? v[i + N] : v[i];
+    v[i] = keep + __shfl_xor_sync(kFull, send, o);
+  }
+}
+
+// Warp sum of 12 values, each lane's a[0..11]: a transpose butterfly
+// (8 + 4 + 2 + 1 + 1 shuffles).  Lane l ends with the total of value
+// (l >> 1) & 15 (values 12-15 are zero padding).
+__device__ __forceinline__ float reduce12(const float a[12], int lane) {
+  float v[16];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) v[k] = a[k];
+#pragma unroll
+  for (int k = 12; k < 16; ++k) v[k] = 0.0f;
+  fold<8>(v, lane, 16);
+  fold<4>(v, lane, 8);
+  fold<2>(v, lane, 4);
+  fold<1>(v, lane, 2);
+  return v[0] + __shfl_xor_sync(kFull, v[0], 1);
 }
 
 __device__ __forceinline__ float det3(float b00, float b01, float b02,
@@ -186,247 +431,470 @@ __device__ void qcp_rotation(const float h_in[9], float r[9]) {
   r[8] = qw * qw - qx * qx - qy * qy + qz * qz;
 }
 
-// Stage A: the 12 per-frame sums of one frame's slice of S.
+// The 12 sums of one frame (planes x0, x1, x2) over one 4-atom chunk
+// j: p holds the chunk's w, ref0, ref1, ref2 (4 each).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-frame_sums_kernel(const T* __restrict__ qp, int B, int S, int split_len,
-                  const float* __restrict__ inv, float inv_scalar,
-                  const float* __restrict__ w,
-                  const float* __restrict__ ref,
-                  float* __restrict__ partials) {
-  const int f = blockIdx.x;
-  const int split = blockIdx.y;
-  const int lo = split * split_len;
-  const int hi = min(S, lo + split_len);
-  const float sc = inv != nullptr ? inv[f] : inv_scalar;
-  const size_t plane = static_cast<size_t>(B) * S;
-  const T* x0p = qp + static_cast<size_t>(f) * S;
-  const T* x1p = x0p + plane;
-  const T* x2p = x1p + plane;
-
-  float acc[12];
+__device__ __forceinline__ void chunk_sums(const T* x0, const T* x1,
+                                           const T* x2, int j,
+                                           const float p[16], float s[12]) {
+  float q0[4], q1[4], q2[4];
+  load4(x0 + 4 * j, q0);
+  load4(x1 + 4 * j, q1);
+  load4(x2 + 4 * j, q2);
 #pragma unroll
-  for (int k = 0; k < 12; ++k) acc[k] = 0.0f;
-  for (int s = lo + threadIdx.x; s < hi; s += kThreads) {
-    const float x0 = load_f(x0p + s) * sc;
-    const float x1 = load_f(x1p + s) * sc;
-    const float x2 = load_f(x2p + s) * sc;
-    const float ws = __ldg(w + s);
-    const float r0 = __ldg(ref + 3 * s);
-    const float r1 = __ldg(ref + 3 * s + 1);
-    const float r2 = __ldg(ref + 3 * s + 2);
-    acc[0] += x0 * ws;  acc[1] += x1 * ws;  acc[2] += x2 * ws;
-    acc[3] += x0 * r0;  acc[4] += x0 * r1;  acc[5] += x0 * r2;
-    acc[6] += x1 * r0;  acc[7] += x1 * r1;  acc[8] += x1 * r2;
-    acc[9] += x2 * r0;  acc[10] += x2 * r1; acc[11] += x2 * r2;
-  }
-
-  __shared__ float red[kWarps][12];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < 12; ++k) {
-    const float v = warp_sum(acc[k]);
-    if (lane == 0) red[warp][k] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < 12) {
-    float v = 0.0f;
-    for (int i = 0; i < kWarps; ++i) v += red[i][threadIdx.x];
-    partials[(static_cast<size_t>(f) * gridDim.y + split) * 12 +
-             threadIdx.x] = v;
+  for (int e = 0; e < 4; ++e) {
+    const float w = p[e], r0 = p[4 + e], r1 = p[8 + e], r2 = p[12 + e];
+    s[0] += w * q0[e];
+    s[1] += w * q1[e];
+    s[2] += w * q2[e];
+    s[3] += q0[e] * r0;
+    s[4] += q0[e] * r1;
+    s[5] += q0[e] * r2;
+    s[6] += q1[e] * r0;
+    s[7] += q1[e] * r1;
+    s[8] += q1[e] * r2;
+    s[9] += q2[e] * r0;
+    s[10] += q2[e] * r1;
+    s[11] += q2[e] * r2;
   }
 }
 
-// Stage B: one thread per frame → R (9) and com (3).
-__global__ void rotation_kernel(const float* __restrict__ partials, int B,
-                                int nsplit, const float* __restrict__ sref,
-                                float* __restrict__ rot) {
-  const int f = blockIdx.x * blockDim.x + threadIdx.x;
-  if (f >= B) return;
-  float a[12];
-#pragma unroll
-  for (int k = 0; k < 12; ++k) a[k] = 0.0f;
-  const float* p = partials + static_cast<size_t>(f) * nsplit * 12;
-  for (int sp = 0; sp < nsplit; ++sp) {
-#pragma unroll
-    for (int k = 0; k < 12; ++k) a[k] += p[sp * 12 + k];
+// The loader warp: copy group g's rows of this block's slice into its
+// stage (one bulk copy per row, spread over the lanes).
+template <typename T>
+__device__ __forceinline__ void copy_group(const Args& a, T* ring,
+                                            uint64_t* full, int g, int s0,
+                                            int ns, int lane) {
+  const int G = a.group;
+  const int st = g % a.stages;
+  const int f0 = g * G;
+  const int gf = min(G, a.B - f0);
+  const uint32_t bytes = static_cast<uint32_t>(ns) * sizeof(T);
+  T* base = ring + static_cast<size_t>(st) * 3 * G * a.slice;
+  // the stage was last read through the generic proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if (lane == 0) mbar_expect_tx(&full[st], 3u * gf * bytes);
+  __syncwarp();
+  const T* qp = static_cast<const T*>(a.qp);
+  for (int k = lane; k < 3 * gf; k += 32) {
+    const int c = k >= 2 * gf ? 2 : (k >= gf ? 1 : 0);
+    const int f = k - c * gf;
+    const T* src = qp + (static_cast<size_t>(c) * a.B + f0 + f) * a.S + s0;
+    bulk_copy(base + (static_cast<size_t>(c) * G + f) * a.slice, src, bytes,
+              &full[st]);
   }
-  const float com[3] = {a[0], a[1], a[2]};
-  const float s3[3] = {sref[0], sref[1], sref[2]};
-  float h[9];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) h[i * 3 + j] = a[3 + i * 3 + j] - com[i] * s3[j];
-  }
-  float r[9];
-  qcp_rotation(h, r);
-  float* o = rot + static_cast<size_t>(f) * 12;
-#pragma unroll
-  for (int k = 0; k < 9; ++k) o[k] = r[k];
-  o[9] = com[0];
-  o[10] = com[1];
-  o[11] = com[2];
 }
 
-// Stage C: per-atom deviation moments over one chunk of frames.
+// Lane 0 of a warp arrives on an mbarrier once all its lanes are done.
+__device__ __forceinline__ void warp_arrive(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0)
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                     smem_u32(bar))
+                 : "memory");
+}
+
+// The kernel; its warps' roles are described at the top of the file.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-moments_kernel(const T* __restrict__ qp, int B, int S, int frames_per_chunk,
-               const float* __restrict__ inv, float inv_scalar,
-               const float* __restrict__ rot,
-               const float* __restrict__ ref,
-               const float* __restrict__ amask,
-               const float* __restrict__ fmask,
-               float* __restrict__ out) {
-  const int s = blockIdx.x * kThreads + threadIdx.x;
-  const int chunk = blockIdx.y;
-  const int f0 = chunk * frames_per_chunk;
-  const int f1 = min(B, f0 + frames_per_chunk);
-  const bool active = s < S;
-  const size_t plane = static_cast<size_t>(B) * S;
+__global__ void __launch_bounds__(kThreads, 1)
+fused_planar_kernel(const Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int G = a.group;
+  const int slice = a.slice;
+  const int nblk = a.blocks;
+  const int NST = a.stages;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // data landed
+  uint64_t* empty = full + kMaxStages;                  // stage read
+  uint64_t* rfull = empty + kMaxStages;                 // rotations in
+  uint64_t* rempty = rfull + kRotBuffers;               // rotations used
+  volatile int* sprog =                                 // sums done
+      reinterpret_cast<volatile int*>(rempty + kRotBuffers);
+  float* frot = reinterpret_cast<float*>(smem + 512);   // 4 x G x kRot
+  float* pw = reinterpret_cast<float*>(smem + fixed_bytes(G));
+  float* acc = pw + 4 * slice;
+  T* ring = reinterpret_cast<T*>(acc + 6 * slice);
 
-  float r0 = 0.0f, r1 = 0.0f, r2 = 0.0f, am = 0.0f;
-  if (active) {
-    r0 = __ldg(ref + 3 * s);
-    r1 = __ldg(ref + 3 * s + 1);
-    r2 = __ldg(ref + 3 * s + 2);
-    am = __ldg(amask + s);
-  }
-  float sd0 = 0.0f, sd1 = 0.0f, sd2 = 0.0f;
-  float sq0 = 0.0f, sq1 = 0.0f, sq2 = 0.0f;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int blk = blockIdx.x;
+  const int s0 = blk * slice;
+  const int ns = min(slice, a.S - s0);
+  const int ng = (a.B + G - 1) / G;
 
-  __shared__ float fr[kFrameTile][kFrameVals];
-  for (int t0 = f0; t0 < f1; t0 += kFrameTile) {
-    const int nt = min(kFrameTile, f1 - t0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < nt * kFrameVals; i += kThreads) {
-      const int fi = i / kFrameVals;
-      const int k = i - fi * kFrameVals;
-      const int f = t0 + fi;
-      float v;
-      if (k < 12) {
-        v = rot[static_cast<size_t>(f) * 12 + k];
-      } else if (k == 12) {
-        v = inv != nullptr ? inv[f] : inv_scalar;
-      } else {
-        v = fmask[f];
-      }
-      fr[fi][k] = v;
+  if (tid == 0) {
+    for (int i = 0; i < NST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kMomentWarps);
     }
-    __syncthreads();
-    if (active) {
-      for (int fi = 0; fi < nt; ++fi) {
-        const float* R = fr[fi];
-        const size_t off = static_cast<size_t>(t0 + fi) * S + s;
-        const float sc = R[12];
-        const float xc0 = load_f(qp + off) * sc - R[9];
-        const float xc1 = load_f(qp + plane + off) * sc - R[10];
-        const float xc2 = load_f(qp + 2 * plane + off) * sc - R[11];
-        const float d0 = xc0 * R[0] + xc1 * R[3] + xc2 * R[6];
-        const float d1 = xc0 * R[1] + xc1 * R[4] + xc2 * R[7];
-        const float d2 = xc0 * R[2] + xc1 * R[5] + xc2 * R[8];
-        const float dev0 = (d0 - r0) * am;
-        const float dev1 = (d1 - r1) * am;
-        const float dev2 = (d2 - r2) * am;
-        const float fm = R[13];
-        const float dm0 = dev0 * fm;
-        const float dm1 = dev1 * fm;
-        const float dm2 = dev2 * fm;
-        sd0 += dm0; sd1 += dm1; sd2 += dm2;
-        sq0 += dm0 * dev0; sq1 += dm1 * dev1; sq2 += dm2 * dev2;
+    for (int i = 0; i < kRotBuffers; ++i) {
+      mbar_init(&rfull[i], 1);
+      mbar_init(&rempty[i], kMomentWarps);
+    }
+    for (int i = 0; i < kSumWarps; ++i) sprog[i] = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < ns; i += kThreads) {
+    const int s = s0 + i;
+    pw[i] = __ldg(a.w + s);
+    pw[slice + i] = __ldg(a.ref + 3 * s);
+    pw[2 * slice + i] = __ldg(a.ref + 3 * s + 1);
+    pw[3 * slice + i] = __ldg(a.ref + 3 * s + 2);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) acc[k * slice + i] = 0.0f;
+  }
+  __syncthreads();   // the last block-wide barrier: roles split here
+
+  if (warp == kLoaderWarp) {
+    // ---- loader: the first stages, then the refill of group r's stage
+    // with group r + NST once the moments warps have read it (the sums
+    // warps have: its rotations needed every block's sums)
+    for (int g = 0; g < min(NST, ng); ++g)
+      copy_group(a, ring, full, g, s0, ns, lane);
+    for (int r = 0; r + NST < ng; ++r) {
+      mbar_wait(&empty[r % NST], (r / NST) & 1);
+      copy_group(a, ring, full, r + NST, s0, ns, lane);
+    }
+    return;
+  }
+
+  if (warp == kRotWarp) {
+    // ---- rotations: group m's frame records into shared memory, once
+    // every frame's is written (polled value by value) and the buffer is
+    // free
+    for (int m = 0; m < ng; ++m) {
+      const int b = m % kRotBuffers;
+      if (m >= kRotBuffers)
+        mbar_wait(&rempty[b], ((m - kRotBuffers) / kRotBuffers) & 1);
+      const int gf = min(G, a.B - m * G);
+      const float* src = a.rot + static_cast<size_t>(m) * G * kRot;
+      float* dst = frot + b * G * kRot;
+      const long long t0 = clock64();
+      // every field of every frame in one pass (14 used of 16), until
+      // none is unset
+      constexpr int kPer = kMaxGroup * kRot / 32;
+      float v[kPer];
+      for (;;) {
+        bool miss = false;
+#pragma unroll
+        for (int r = 0; r < kPer; ++r) {
+          const int i = lane + 32 * r;
+          const bool used = i < gf * kRot && (i & (kRot - 1)) < 14;
+          v[r] = used ? ld_relaxed(src + i) : 0.0f;
+          miss |= used && unset(v[r]);
+        }
+        if (!__any_sync(kFull, miss)) break;
+        poll_pause(t0);
+      }
+#pragma unroll
+      for (int r = 0; r < kPer; ++r) {
+        const int i = lane + 32 * r;
+        if (i < gf * kRot) dst[i] = v[r];
+      }
+      warp_arrive(&rfull[b], lane);
+    }
+    return;
+  }
+
+  if (warp == kSolverWarp) {
+    // ---- solver: the frames f = blk, blk + blocks, ...: the blocks'
+    // partials of the 12 sums in block order, the scale, the com (x) sref
+    // fix-up, QCP; then the frame's record
+    for (int f = blk; f < a.B; f += nblk) {
+      const int g = f / G;
+      const float* src = a.part + static_cast<size_t>(f) * 12 * nblk;
+      const long long t0 = clock64();
+      // this block's own sums of group g first (a hint in shared memory:
+      // the other blocks' come about as late), then every block's
+      while (lane < kSumWarps && sprog[lane] <= g) poll_pause(t0);
+      __syncwarp();
+      float t[kMaxBlocks / 32][12];
+      for (;;) {
+        bool miss = false;
+#pragma unroll
+        for (int i = 0; i < kMaxBlocks / 32; ++i) {
+          const int b = lane + 32 * i;
+#pragma unroll
+          for (int k = 0; k < 12; ++k) {
+            t[i][k] = b < nblk ? ld_relaxed(src + k * nblk + b) : 0.0f;
+            miss |= unset(t[i][k]);
+          }
+        }
+        if (!__any_sync(kFull, miss)) break;
+        poll_pause(t0);
+      }
+      float v[12];
+#pragma unroll
+      for (int k = 0; k < 12; ++k) {
+        v[k] = t[0][k];
+#pragma unroll
+        for (int i = 1; i < kMaxBlocks / 32; ++i) v[k] += t[i][k];
+      }
+      const float tot = reduce12(v, lane);   // lane 2k holds sum k
+      float sm[12];
+#pragma unroll
+      for (int k = 0; k < 12; ++k) sm[k] = __shfl_sync(kFull, tot, 2 * k);
+      if (lane == 0) {
+        const float sc = a.inv != nullptr ? __ldg(a.inv + f) : a.inv_scalar;
+        const float com[3] = {sm[0] * sc, sm[1] * sc, sm[2] * sc};
+        float h[9];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+#pragma unroll
+          for (int j = 0; j < 3; ++j)
+            h[i * 3 + j] = sm[3 + i * 3 + j] * sc - com[i] * __ldg(a.sref + j);
+        }
+        float r[9];
+        qcp_rotation(h, r);
+        float* o = a.rot + static_cast<size_t>(f) * kRot;
+#pragma unroll
+        for (int k = 0; k < 9; ++k) st_relaxed(o + k, r[k]);
+        st_relaxed(o + 9, com[0]);
+        st_relaxed(o + 10, com[1]);
+        st_relaxed(o + 11, com[2]);
+        st_relaxed(o + 12, sc);
+        st_relaxed(o + 13, __ldg(a.fmask + f));
+      }
+      __syncwarp();
+    }
+    return;
+  }
+
+  if (warp < kFirstMomentWarp) {
+    const int sw = warp - kFirstSumWarp;
+    // ---- sums: warp w takes frames w, w + 6, ... of each group, two
+    // at a time, lanes over the slice's 4-atom chunks; the block's sums
+    // of a group are signalled to the publisher
+    const int nch = ns / 4;
+    const bool preg = nch <= 32 * kRegChunks;
+    float pr[kRegChunks][16];   // w, ref0, ref1, ref2 of the lane's chunks
+#pragma unroll
+    for (int c = 0; c < kRegChunks; ++c) {
+      const int j = lane + 32 * c;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (preg && j < nch) {
+          load4(pw + q * slice + 4 * j, pr[c] + 4 * q);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pr[c][4 * q + e] = 0.0f;
+        }
       }
     }
+    const size_t plane = static_cast<size_t>(G) * slice;
+    for (int g = 0; g < ng; ++g) {
+      const int st = g % NST;
+      mbar_wait(&full[st], (g / NST) & 1);
+      const T* base = ring + static_cast<size_t>(st) * 3 * plane;
+      const int gf = min(G, a.B - g * G);
+      for (int fa = sw; fa < gf; fa += 2 * kSumWarps) {
+        const int fb = fa + kSumWarps;
+        const bool two = fb < gf;
+        const T* a0 = base + static_cast<size_t>(fa) * slice;
+        const T* b0 = base + static_cast<size_t>(two ? fb : fa) * slice;
+        float sa[12], sb[12];
+#pragma unroll
+        for (int k = 0; k < 12; ++k) {
+          sa[k] = 0.0f;
+          sb[k] = 0.0f;
+        }
+        if (preg) {
+#pragma unroll
+          for (int c = 0; c < kRegChunks; ++c) {
+            const int j = lane + 32 * c;
+            if (j < nch) {
+              chunk_sums(a0, a0 + plane, a0 + 2 * plane, j, pr[c], sa);
+              if (two)
+                chunk_sums(b0, b0 + plane, b0 + 2 * plane, j, pr[c], sb);
+            }
+          }
+        } else {
+          for (int j = lane; j < nch; j += 32) {
+            float p[16];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) load4(pw + q * slice + 4 * j, p + 4 * q);
+            chunk_sums(a0, a0 + plane, a0 + 2 * plane, j, p, sa);
+            if (two) chunk_sums(b0, b0 + plane, b0 + 2 * plane, j, p, sb);
+          }
+        }
+        const int k = (lane >> 1) & 15;
+        const bool writer = (lane & 1) == 0 && k < 12;
+        const float va = reduce12(sa, lane);
+        if (writer) {
+          const size_t f = static_cast<size_t>(g) * G + fa;
+          st_relaxed(a.part + (f * 12 + k) * nblk + blk, va);
+        }
+        if (two) {
+          const float vb = reduce12(sb, lane);
+          if (writer) {
+            const size_t f = static_cast<size_t>(g) * G + fb;
+            st_relaxed(a.part + (f * 12 + k) * nblk + blk, vb);
+          }
+        }
+      }
+      // progress hint for the frame solver
+      if (lane == 0) sprog[sw] = g + 1;
+    }
+    return;
   }
-  if (active) {
-    float* o = out + static_cast<size_t>(chunk) * 6 * S + s;
-    o[0] = sd0;
-    o[S] = sd1;
-    o[2 * static_cast<size_t>(S)] = sd2;
-    o[3 * static_cast<size_t>(S)] = sq0;
-    o[4 * static_cast<size_t>(S)] = sq1;
-    o[5 * static_cast<size_t>(S)] = sq2;
-  }
-}
 
-// Stage D: add the per-chunk partials in chunk order.
-__global__ void chunk_sum_kernel(const float* __restrict__ chunks,
-                                 int nchunk, int n, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float a = 0.0f;
-  for (int c = 0; c < nchunk; ++c) a += chunks[static_cast<size_t>(c) * n + i];
-  out[i] = a;
+  // ---- moments: thread t of warps 6-11 takes the atom pairs (2p, 2p+1)
+  // for p = t, t + 192, ...; each group once its rotations are in, frames
+  // in order; then the group's stage and rotation buffer are released
+  const int mt = tid - kFirstMomentWarp * 32;
+  for (int m = 0; m < ng; ++m) {
+    const int st = m % NST;
+    const int b = m % kRotBuffers;
+    mbar_wait(&full[st], (m / NST) & 1);
+    mbar_wait(&rfull[b], (m / kRotBuffers) & 1);
+    const int gf = min(G, a.B - m * G);
+    const T* base = ring + static_cast<size_t>(st) * 3 * G * slice;
+    const float4* fr4 = reinterpret_cast<const float4*>(frot + b * G * kRot);
+    for (int i = 2 * mt; i < ns; i += 2 * kMomentThreads) {
+      float sd[2][3], sq[2][3], r[2][3];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          sd[e][c] = acc[c * slice + i + e];
+          sq[e][c] = acc[(3 + c) * slice + i + e];
+          r[e][c] = pw[(1 + c) * slice + i + e];
+        }
+      }
+      const T* x0 = base + i;
+#pragma unroll 2
+      for (int f = 0; f < gf; ++f) {
+        const float4 A = fr4[f * 4];        // R00 R01 R02 R10
+        const float4 Bq = fr4[f * 4 + 1];   // R11 R12 R20 R21
+        const float4 C = fr4[f * 4 + 2];    // R22 com0 com1 com2
+        const float4 D = fr4[f * 4 + 3];    // scale fmask
+        const T* xf = x0 + static_cast<size_t>(f) * slice;
+        float q0[2], q1[2], q2[2];
+        load2(xf, q0);
+        load2(xf + static_cast<size_t>(G) * slice, q1);
+        load2(xf + static_cast<size_t>(2 * G) * slice, q2);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float xc0 = fmaf(q0[e], D.x, -C.y);
+          const float xc1 = fmaf(q1[e], D.x, -C.z);
+          const float xc2 = fmaf(q2[e], D.x, -C.w);
+          // (xc @ R)_j - ref_j, the reference folded into the chain
+          const float dev0 =
+              fmaf(xc2, Bq.z, fmaf(xc1, A.w, fmaf(xc0, A.x, -r[e][0])));
+          const float dev1 =
+              fmaf(xc2, Bq.w, fmaf(xc1, Bq.x, fmaf(xc0, A.y, -r[e][1])));
+          const float dev2 =
+              fmaf(xc2, C.x, fmaf(xc1, Bq.y, fmaf(xc0, A.z, -r[e][2])));
+          const float dm0 = dev0 * D.y;
+          const float dm1 = dev1 * D.y;
+          const float dm2 = dev2 * D.y;
+          sd[e][0] += dm0;
+          sd[e][1] += dm1;
+          sd[e][2] += dm2;
+          sq[e][0] += dm0 * dev0;
+          sq[e][1] += dm1 * dev1;
+          sq[e][2] += dm2 * dev2;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          acc[c * slice + i + e] = sd[e][c];
+          acc[(3 + c) * slice + i + e] = sq[e][c];
+        }
+      }
+    }
+    warp_arrive(&empty[st], lane);
+    warp_arrive(&rempty[b], lane);
+  }
+
+  // ---- one write of (6, slice), amask applied (each thread its atoms)
+  for (int i = 2 * mt; i < ns; i += 2 * kMomentThreads) {
+#pragma unroll
+   for (int e = 0; e < 2; ++e) {
+    const size_t s = static_cast<size_t>(s0) + i + e;
+    const float am = __ldg(a.amask + s);
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      a.out[k * static_cast<size_t>(a.S) + s] = acc[k * slice + i + e] * am;
+#pragma unroll
+    for (int k = 3; k < 6; ++k)
+      a.out[k * static_cast<size_t>(a.S) + s] =
+          acc[k * slice + i + e] * (am * am);
+   }
+  }
 }
 
 template <typename T>
-cudaError_t launch(const T* qp, int B, int S, const float* inv,
-                   float inv_scalar, const float* w, const float* ref,
-                   const float* amask, const float* fmask,
-                   const float* sref, float* partials, int nsplit,
-                   float* rot, float* chunks, int nchunk, float* out,
-                   cudaStream_t stream) {
-  const int split_len = (S + nsplit - 1) / nsplit;
-  frame_sums_kernel<T><<<dim3(B, nsplit), kThreads, 0, stream>>>(
-      qp, B, S, split_len, inv, inv_scalar, w, ref, partials);
-  cudaError_t e = cudaGetLastError();
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const long long smem = smem_bytes(a.slice, a.group, a.stages, sizeof(T));
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_planar_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  rotation_kernel<<<(B + 127) / 128, 128, 0, stream>>>(partials, B, nsplit,
-                                                       sref, rot);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const int frames_per_chunk = (B + nchunk - 1) / nchunk;
-  float* moments_out = nchunk > 1 ? chunks : out;
-  moments_kernel<T><<<dim3((S + kThreads - 1) / kThreads, nchunk), kThreads,
-                      0, stream>>>(qp, B, S, frames_per_chunk, inv,
-                                   inv_scalar, rot, ref, amask, fmask,
-                                   moments_out);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  if (nchunk > 1) {
-    const int n = 6 * S;
-    chunk_sum_kernel<<<(n + 255) / 256, 256, 0, stream>>>(chunks, nchunk, n,
-                                                          out);
-  }
-  return cudaGetLastError();
+  void* params[] = {const_cast<Args*>(&a)};
+  e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(fused_planar_kernel<T>),
+      dim3(a.blocks), dim3(kThreads), params, static_cast<size_t>(smem),
+      stream);
+  const cudaError_t last = cudaGetLastError();
+  return e != cudaSuccess ? e : last;
 }
 
 }  // namespace
 
 // dtype: 0 = int16, 1 = int8, 2 = float32.  inv: (B,) float32 per-frame
 // inverse scales, or null to use inv_scalar for every frame.  ref is the
-// padded centred reference in its (S, 3) layout.  Scratch: partials
-// (B, nsplit, 12), rot (B, 12), chunks (nchunk, 6, S) when nchunk > 1.
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// padded centred reference in its (S, 3) layout.  Geometry (from
+// ops/fused_planar.fused_geometry): `blocks` slices of `slice` atoms (the
+// last may be shorter), frames in groups of `group`, a ring of `stages`.
+// Scratch: part (B, 12, blocks) then rot (B, 16) float32, every word
+// 0xffffffff on entry.  Launches one cooperative kernel on `stream` and
+// returns its error (0 on success).
 extern "C" int mdtpu_fused_planar(const void* qp, int dtype, int B, int S,
                                   const float* inv, float inv_scalar,
                                   const float* w, const float* ref,
                                   const float* amask, const float* fmask,
-                                  const float* sref, float* partials,
-                                  int nsplit, float* rot, float* chunks,
-                                  int nchunk, float* out, void* stream) {
-  if (B < 1 || S < 1 || nsplit < 1 || nchunk < 1 || nsplit > 65535 ||
-      nchunk > 65535) {
+                                  const float* sref, int slice, int blocks,
+                                  int group, int stages, float* scratch,
+                                  float* out, void* stream) {
+  if (B < 1 || S < 16 || S % 16 != 0 || slice < 16 || slice % 16 != 0 ||
+      blocks < 1 || blocks > kMaxBlocks || static_cast<long long>(blocks) * slice < S ||
+      static_cast<long long>(blocks - 1) * slice >= S || group < 1 ||
+      group > kMaxGroup || stages < 2 || stages > kMaxStages) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  Args a;
+  a.qp = qp;
+  a.B = B;
+  a.S = S;
+  a.inv = inv;
+  a.inv_scalar = inv_scalar;
+  a.w = w;
+  a.ref = ref;
+  a.amask = amask;
+  a.fmask = fmask;
+  a.sref = sref;
+  a.slice = slice;
+  a.blocks = blocks;
+  a.group = group;
+  a.stages = stages;
+  a.part = scratch;
+  a.rot = scratch + static_cast<size_t>(B) * 12 * blocks;
+  a.out = out;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (dtype) {
     case 0:
-      e = launch(static_cast<const int16_t*>(qp), B, S, inv, inv_scalar, w,
-                 ref, amask, fmask, sref, partials, nsplit, rot, chunks,
-                 nchunk, out, st);
+      e = launch<int16_t>(a, st);
       break;
     case 1:
-      e = launch(static_cast<const int8_t*>(qp), B, S, inv, inv_scalar, w,
-                 ref, amask, fmask, sref, partials, nsplit, rot, chunks,
-                 nchunk, out, st);
+      e = launch<int8_t>(a, st);
       break;
     case 2:
-      e = launch(static_cast<const float*>(qp), B, S, inv, inv_scalar, w,
-                 ref, amask, fmask, sref, partials, nsplit, rot, chunks,
-                 nchunk, out, st);
+      e = launch<float>(a, st);
       break;
     default:
       e = cudaErrorInvalidValue;

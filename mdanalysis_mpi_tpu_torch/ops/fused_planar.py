@@ -15,18 +15,25 @@ per-frame rotation solved by QCP inside the sweep.
   hand-written kernel ``csrc/fused_rmsf.cu`` (built on first use by
   :mod:`mdanalysis_mpi_tpu_torch._build`) or raises; on a CPU tensor it
   runs :func:`planar_sums_plain`.  ``planar_sums.launches`` counts the
-  kernel launches (one per call: stages A-D of the CUDA source run on
-  the current stream behind it).
+  kernel launches: one cooperative launch per call on the current
+  stream, after one fill of its scratch (``torch.full``).
 - :func:`planar_sums_plain` is the kernel's plain version: the TPU
   kernel's own algebra (``pallas_fused._build_planar``) in torch ops,
   with :func:`qcp_rotation`.
+- :func:`fused_geometry` sizes the launch: one block per SM, each owning
+  a slice of atoms (a multiple of 16), frames in groups of ``group``
+  copied into a ring of ``stages`` shared-memory stages.
 
 The kernel replaces ``mdanalysis_mpi_tpu/ops/pallas_fused.py::
-_build_planar`` (``pl.pallas_call`` at :289).  It is bound by bytes:
-one read of the staged block, ``3·B·S·sizeof(dtype)``, over the card's
-memory rate; its design (split-S frame sums, a QCP thread per frame,
-an atom-parallel moments sweep, fixed-order reductions, no float
-atomics) is described at the top of the CUDA source.
+_build_planar`` (``pl.pallas_call`` at :289).  The function is bound by
+bytes, one read of the staged block, ``3·B·S·sizeof(dtype)``, over the
+card's memory rate, and the kernel reads the block from device memory
+once: each block bulk-copies its slice's rows into a ring of
+shared-memory stages; warps with fixed roles take the per-frame sums,
+exchange them with the other blocks through L2 (each frame combined in
+block order and solved by QCP on one thread of one block; no float
+atomics) and take the moments from the same stage.  The design and its
+sizing are at the top of the CUDA source.
 """
 
 from __future__ import annotations
@@ -41,11 +48,19 @@ from mdanalysis_mpi_tpu_torch import device as _device  # noqa: F401  (TF32 off)
 
 _NEWTON_ITERS = 40
 _DTYPE_CODES = {torch.int16: 0, torch.int8: 1, torch.float32: 2}
-# stage A covers about this many atoms per block; stage C splits the
-# frames into chunks until about this many blocks are in flight
-_SPLIT_ATOMS = 4096
-_MOMENT_BLOCKS = 1056
-_THREADS = 256
+_ITEMSIZE = {torch.int16: 2, torch.int8: 1, torch.float32: 4}
+# launch geometry of csrc/fused_rmsf.cu (fused_smem_bytes counts its
+# layout; its entry point refuses a geometry that does not fit, and
+# tests/test_torch_cuda.py holds the two together at the limit): shared
+# memory a block may use on Hopper, the slice granule, the stage ring's
+# bounds, the most blocks its frame solver takes, and the group's target
+# of 24 bytes per atom-row (12 int16, 24 int8, 6 float32 frames)
+SMEM_MAX = 232_448
+SLICE_ATOMS = 16
+MAX_STAGES = 12
+MAX_BLOCKS = 160
+_MIN_STAGES = 3
+_GROUP_ROW_BYTES = 24
 
 
 def qcp_rotation(h):
@@ -224,6 +239,65 @@ def _check(name, t, shape, device):
             f"of shape {shape} on {device}, got {desc}")
 
 
+def fused_smem_bytes(slice_atoms: int, group: int, stages: int,
+                     itemsize: int) -> int:
+    """Shared memory of one block (``smem_bytes`` in the CUDA source):
+    512 B of barriers and four 64-byte rotation records a frame of the
+    group; 40 B an atom of parameters and accumulators; the stage
+    ring."""
+    fixed = 512 + 256 * group
+    return fixed + 40 * slice_atoms + stages * 3 * group * slice_atoms \
+        * itemsize
+
+
+def fused_max_atoms(itemsize: int, n_sm: int) -> int:
+    """The largest S (a multiple of 256) the kernel takes on ``n_sm``
+    SMs: every slice fits one frame a group in two stages."""
+    n_sm = min(n_sm, MAX_BLOCKS)
+    per_atom = 2 * 3 * itemsize + 40
+    slice_max = (SMEM_MAX - fused_smem_bytes(0, 1, 0, itemsize)) \
+        // per_atom // SLICE_ATOMS * SLICE_ATOMS
+    return slice_max * n_sm // 256 * 256
+
+
+@functools.lru_cache(maxsize=256)
+def fused_geometry(B: int, S: int, itemsize: int, n_sm: int):
+    """Launch geometry ``(slice, blocks, group, stages)`` for ``B``
+    frames of ``S`` atoms of ``itemsize`` bytes on ``n_sm`` SMs.
+
+    ``slice`` is the least multiple of 16 atoms that covers ``S`` in at
+    most ``n_sm`` blocks (the last block's slice may be shorter); the
+    group is the largest up to 24 bytes an atom-row (and at most ``B``)
+    that leaves room for three stages, then the ring takes up to twelve.
+    Raises ``ValueError`` unless ``S % 256 == 0`` and ``S`` is within
+    :func:`fused_max_atoms`."""
+    n_sm = min(n_sm, MAX_BLOCKS)
+    if S < 256 or S % 256:
+        raise ValueError(
+            f"fused kernel: S = {S} atoms must be a positive multiple of "
+            "256 (pad_selection's ATOM_TILE)")
+    limit = fused_max_atoms(itemsize, n_sm)
+    if S > limit:
+        raise ValueError(
+            f"fused kernel: S = {S} atoms exceeds the limit of {limit} "
+            f"atoms for {itemsize}-byte planes on {n_sm} SMs (one frame "
+            "a group in two shared-memory stages per block)")
+    per = -(-(S // SLICE_ATOMS) // n_sm)
+    slice_atoms = SLICE_ATOMS * per
+    blocks = -(-S // slice_atoms)
+    for group in range(min(_GROUP_ROW_BYTES // itemsize, B), 0, -1):
+        room = SMEM_MAX - fused_smem_bytes(slice_atoms, group, 0, itemsize)
+        stages = room // (3 * group * slice_atoms * itemsize)
+        if stages >= _MIN_STAGES:
+            return slice_atoms, blocks, group, min(stages, MAX_STAGES)
+    return slice_atoms, blocks, 1, 2
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _launch(qp, inv_scale, wN, refc_p, amask, sref, fmask):
     from mdanalysis_mpi_tpu_torch import _build
 
@@ -232,11 +306,15 @@ def _launch(qp, inv_scale, wN, refc_p, amask, sref, fmask):
         raise ValueError(
             f"fused kernel: staged planes must be (3, B, S) int16, int8 "
             f"or float32, got {tuple(qp.shape)} {qp.dtype}")
-    if not qp.is_contiguous():
-        raise ValueError("fused kernel: staged planes must be contiguous")
+    if not qp.is_contiguous() or qp.data_ptr() % 16:
+        raise ValueError(
+            "fused kernel: staged planes must be contiguous and 16-byte "
+            "aligned")
     _, B, S = qp.shape
-    if B < 1 or S < 1:
+    if B < 1:
         raise ValueError(f"fused kernel: empty block {tuple(qp.shape)}")
+    slice_atoms, blocks, group, stages = fused_geometry(
+        B, S, _ITEMSIZE[qp.dtype], _sm_count(dev))
     _check("wN", wN, (S,), dev)
     _check("refc_p", refc_p, (S, 3), dev)
     _check("amask", amask, (S,), dev)
@@ -260,15 +338,12 @@ def _launch(qp, inv_scale, wN, refc_p, amask, sref, fmask):
     else:
         inv_ptr, inv_scalar = None, float(inv_scale)
 
-    nsplit = -(-S // _SPLIT_ATOMS)
-    n_atom_blocks = -(-S // _THREADS)
-    nchunk = max(1, min(B, -(-_MOMENT_BLOCKS // n_atom_blocks), 65535))
-    f32 = torch.float32
-    partials = torch.empty((B, nsplit, 12), dtype=f32, device=dev)
-    rot = torch.empty((B, 12), dtype=f32, device=dev)
-    chunks = (torch.empty((nchunk, 6, S), dtype=f32, device=dev)
-              if nchunk > 1 else None)
-    out = torch.empty((6, S), dtype=f32, device=dev)
+    # the blocks' per-frame partial sums and the frames' rotation
+    # records, every word 0xffffffff (the one reset): the kernel's
+    # readers poll each value until it is written
+    scratch = torch.full((B * (12 * blocks + 16),), -1, dtype=torch.int32,
+                         device=dev)
+    out = torch.empty((6, S), dtype=torch.float32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -276,8 +351,7 @@ def _launch(qp, inv_scale, wN, refc_p, amask, sref, fmask):
             qp.data_ptr(), _DTYPE_CODES[qp.dtype], B, S, inv_ptr,
             ctypes.c_float(inv_scalar), wN.data_ptr(), refc_p.data_ptr(),
             amask.data_ptr(), fmask.data_ptr(), sref.data_ptr(),
-            partials.data_ptr(), nsplit, rot.data_ptr(),
-            None if chunks is None else chunks.data_ptr(), nchunk,
+            slice_atoms, blocks, group, stages, scratch.data_ptr(),
             out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(

@@ -8,7 +8,13 @@ JAX, so it runs on a GPU machine that has no JAX:
 
 - ``csrc/fused_rmsf.cu`` (``fused_planar.planar_sums``): the mean within
   5e-4 and M2 within 5e-3 of the plain version (tests/test_pallas_fused
-  .py's tolerances), two launches bit-identical.
+  .py's tolerances), two launches bit-identical, on the kernel's edges:
+  B not a multiple of the frame group, S = 256 (fewer blocks than SMs),
+  the main shape (131 blocks on an H100), slices above 384 atoms (the
+  sums' shared-memory path), a per-frame scale given as a
+  device tensor, a launch on a side stream (bit-identical to the
+  default stream's), and the wrapper raising for S % 256 != 0 and for S
+  beyond the shared-memory limit.
 - ``csrc/pair_histogram.cu`` (``fused_distances.pair_histogram``): the
   counts EQUAL to the plain version's (every float step is one
   round-to-nearest intrinsic and the kernel's division-free minimum
@@ -42,22 +48,11 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,n_real,dtype,valid_b", [
-    (16, 100, "int16", None),      # one TPU frame tile
-    (32, 250, "int16", 30),        # masked tail frames
-    (32, 250, "int8", None),       # int8 tier
-    (48, 511, "int16", 47),        # S = 512, uneven tail
-    (16, 256, "int16", None),      # exact-width selection (no padding)
-    (1, 300, "int16", None),
-    (56, 3000, "float32", 50)])
-def test_cuda_kernel_matches_plain(B, n_real, dtype, valid_b):
-    """Frames are rigid rotations and shifts of the reference plus 0.3 Å
-    noise (the JAX package's planar test case): the regime the
-    tolerances are set for.  Frames uncorrelated with the reference
-    give M2 near 1e4 Å², where float32 rounding alone exceeds 5e-3."""
-    dev = _card()
-    r = np.random.default_rng(B + n_real)
+def _fused_case(B, n_real, dtype, valid_b, dev, seed):
+    """Staged planes and fused params on the card: frames are rigid
+    rotations and shifts of the reference plus 0.3 Å noise (the JAX
+    package's planar test case) → (args of planar_sums, T)."""
+    r = np.random.default_rng(seed)
     pidx, nr = fr.pad_selection(np.arange(n_real))
     S = len(pidx)
     refc = r.normal(size=(nr, 3)) * 4
@@ -78,8 +73,40 @@ def test_cuda_kernel_matches_plain(B, n_real, dtype, valid_b):
     wN, refc_p, _, amask, sref = (p.to(dev) for p in params)
     mask = np.zeros(B, np.float32)
     mask[:B if valid_b is None else valid_b] = 1.0
-    args = (_t(qp).to(dev), float(inv), wN, refc_p, amask, sref,
-            _t(mask).to(dev))
+    return ((_t(qp).to(dev), float(inv), wN, refc_p, amask, sref,
+             _t(mask).to(dev)), float(mask.sum()))
+
+
+def _assert_moments_close(out, plain, T):
+    torch.testing.assert_close(out[:3] / T, plain[:3] / T, rtol=0,
+                               atol=5e-4)
+    torch.testing.assert_close(out[3:] - out[:3] ** 2 / T,
+                               plain[3:] - plain[:3] ** 2 / T, rtol=0,
+                               atol=5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n_real,dtype,valid_b", [
+    (16, 100, "int16", None),      # one TPU frame tile
+    (32, 250, "int16", 30),        # masked tail frames
+    (32, 250, "int8", None),       # int8 tier
+    (48, 511, "int16", 47),        # S = 512, uneven tail
+    (16, 256, "int16", None),      # exact-width selection (no padding)
+    (1, 300, "int16", None),
+    (56, 3000, "float32", 50),
+    (100, 3000, "int16", 97),      # B not a multiple of the group (12)
+    (100, 3000, "int8", None),     # ... of 24
+    (100, 3000, "float32", 99),    # ... of 6
+    (12, 200, "int16", None),      # S = 256: 16 blocks of 16 atoms
+    (512, 50000, "int16", 510),    # the main shape: 131 blocks of 384
+    (24, 60000, "int16", 23)])     # slices above 384 atoms: w and ref
+                                   # from shared memory, 2+ pairs a thread
+def test_cuda_kernel_matches_plain(B, n_real, dtype, valid_b):
+    """Frames uncorrelated with the reference would give M2 near 1e4
+    Å², where float32 rounding alone exceeds 5e-3: the inputs are the
+    regime the tolerances are set for."""
+    dev = _card()
+    args, T = _fused_case(B, n_real, dtype, valid_b, dev, seed=B + n_real)
     n0 = fp.planar_sums.launches
     out = fp.planar_sums(*args)
     again = fp.planar_sums(*args)
@@ -87,12 +114,85 @@ def test_cuda_kernel_matches_plain(B, n_real, dtype, valid_b):
     torch.cuda.synchronize()
     assert fp.planar_sums.launches == n0 + 2
     assert torch.equal(out, again)
-    T = float(mask.sum())
-    torch.testing.assert_close(out[:3] / T, plain[:3] / T, rtol=0,
-                               atol=5e-4)
-    torch.testing.assert_close(out[3:] - out[:3] ** 2 / T,
-                               plain[3:] - plain[:3] ** 2 / T, rtol=0,
-                               atol=5e-3)
+    _assert_moments_close(out, plain, T)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_per_frame_scale_on_the_device():
+    """A per-frame scale given as a (B,) device tensor, every frame's
+    different, is read on the card (never on the host)."""
+    dev = _card()
+    args, T = _fused_case(40, 1000, "int16", 37, dev, seed=40)
+    inv = args[1] * (1.0 + 0.01 * torch.arange(40, device=dev,
+                                                dtype=torch.float32))
+    args = (args[0], inv) + args[2:]
+    out = fp.planar_sums(*args)
+    again = fp.planar_sums(*args)
+    plain = fp.planar_sums_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    _assert_moments_close(out, plain, T)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_side_stream_is_bit_identical():
+    """A launch on a side stream gives the default stream's result bit
+    for bit."""
+    dev = _card()
+    args, T = _fused_case(64, 2000, "int16", 60, dev, seed=64)
+    out = fp.planar_sums(*args)
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        again = fp.planar_sums(*args)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    plain = fp.planar_sums_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    _assert_moments_close(out, plain, T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["unpadded", "beyond-limit"])
+def test_cuda_kernel_wrapper_raises_outside_its_envelope(case):
+    """S % 256 != 0 and S beyond the shared-memory limit raise before
+    any launch."""
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    S = 300 if case == "unpadded" else fp.fused_max_atoms(2, sms) + 256
+    qp = torch.zeros((3, 2, S), dtype=torch.int16, device=dev)
+    vec = torch.zeros(S, device=dev)
+    n0 = fp.planar_sums.launches
+    match = "multiple of 256" if case == "unpadded" else "exceeds the limit"
+    with pytest.raises(ValueError, match=match):
+        fp.planar_sums(qp, 0.01, vec, torch.zeros((S, 3), device=dev), vec,
+                       torch.zeros(3, device=dev), torch.ones(2, device=dev))
+    assert fp.planar_sums.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int16", "int8", "float32"])
+def test_cuda_kernel_at_the_shared_memory_limit(dtype, monkeypatch):
+    """The wrapper's sizing (``fused_smem_bytes``) against the kernel's
+    own layout, which its entry point checks: at the largest S the
+    wrapper takes (one frame a group in two stages) the launch goes
+    through and matches the plain version; the same slices with a third
+    stage are refused by the entry point."""
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    itemsize = {"int16": 2, "int8": 1, "float32": 4}[dtype]
+    S = fp.fused_max_atoms(itemsize, sms)
+    args, T = _fused_case(2, S, dtype, None, dev, seed=S)
+    geometry = fp.fused_geometry(2, S, itemsize, sms)
+    assert geometry[2:] == (1, 2)
+    out = fp.planar_sums(*args)
+    plain = fp.planar_sums_plain(*args)
+    torch.cuda.synchronize()
+    _assert_moments_close(out, plain, T)
+    monkeypatch.setattr(fp, "fused_geometry",
+                        lambda *a: geometry[:3] + (3,))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fp.planar_sums(*args)
 
 
 @pytest.mark.cuda

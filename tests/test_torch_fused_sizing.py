@@ -1,0 +1,82 @@
+"""The launch geometry of the fused aligned-moments kernel
+(``ops/fused_planar.fused_geometry``), checked on the CPU without JAX.
+
+The kernel (``csrc/fused_rmsf.cu``) gives each block a contiguous slice
+of atoms and copies frames in groups into a ring of shared-memory
+stages; the geometry decides the slice, the group and the ring from
+``(B, S, dtype, SM count)``.  These tests hold it to the kernel's
+envelope: every atom in exactly one slice, slices a multiple of 16
+atoms (16-byte rows for every dtype), a block's shared memory within
+the 232,448 bytes Hopper allows, at least one frame a group, at most
+one block per SM, and the wrapper's limits (``S % 256 == 0``, S up to
+:func:`fused_max_atoms`).  That the kernel's own layout agrees with
+this sizing is held on the card (tests/test_torch_cuda.py: a launch at
+the limit goes through, one more stage is refused).
+"""
+
+import pytest
+
+from mdanalysis_mpi_tpu_torch.ops import fused_planar as fp
+
+
+@pytest.mark.parametrize("n_sm", [114, 132])
+@pytest.mark.parametrize("itemsize", [1, 2, 4])
+@pytest.mark.parametrize("S", [256, 50176])
+@pytest.mark.parametrize("B", [1, 33, 511, 512])
+def test_geometry_covers_every_atom_and_fits(B, S, itemsize, n_sm):
+    slice_atoms, blocks, group, stages = fp.fused_geometry(B, S, itemsize,
+                                                           n_sm)
+    assert slice_atoms % fp.SLICE_ATOMS == 0 and slice_atoms >= 16
+    # every atom in exactly one slice: block b owns [b*slice, ...) and
+    # only the last block's slice is cut short
+    assert (blocks - 1) * slice_atoms < S <= blocks * slice_atoms
+    owned = [min(slice_atoms, S - b * slice_atoms) for b in range(blocks)]
+    assert sum(owned) == S and min(owned) > 0
+    assert all(n % fp.SLICE_ATOMS == 0 for n in owned)
+    assert blocks <= n_sm
+    assert 1 <= group <= min(B, 24 // itemsize)
+    assert 2 <= stages <= fp.MAX_STAGES
+    assert fp.fused_smem_bytes(slice_atoms, group, stages,
+                               itemsize) <= fp.SMEM_MAX
+
+
+def test_main_shape_geometry():
+    """The worked sizing of the CUDA source's header: 50,176 atoms on
+    132 SMs → 131 blocks of 384 atoms, 24 bytes an atom-row a stage,
+    seven stages."""
+    for itemsize, group in ((2, 12), (1, 24), (4, 6)):
+        assert fp.fused_geometry(512, 50176, itemsize, 132) == (
+            384, 131, group, 7)
+    assert fp.fused_smem_bytes(384, 12, 7, 2) == 212_480
+
+
+@pytest.mark.parametrize("n_sm", [114, 132])
+@pytest.mark.parametrize("itemsize", [1, 2, 4])
+def test_limit_is_exact(itemsize, n_sm):
+    """S = the limit takes one frame a group or more; S one padding
+    granule above it raises, because its slice cannot hold even one
+    frame in two stages."""
+    limit = fp.fused_max_atoms(itemsize, n_sm)
+    assert limit % 256 == 0 and limit > 16384
+    slice_atoms, blocks, group, stages = fp.fused_geometry(512, limit,
+                                                           itemsize, n_sm)
+    assert group >= 1 and stages >= 2 and blocks <= n_sm
+    assert fp.fused_smem_bytes(slice_atoms, group, stages,
+                               itemsize) <= fp.SMEM_MAX
+    above = limit + 256
+    slice_above = 16 * -(-(above // 16) // n_sm)
+    assert fp.fused_smem_bytes(slice_above, 1, 2, itemsize) > fp.SMEM_MAX
+    with pytest.raises(ValueError, match="exceeds the limit"):
+        fp.fused_geometry(512, above, itemsize, n_sm)
+
+
+def test_main_limits_on_132_sms():
+    assert [fp.fused_max_atoms(i, 132) for i in (1, 2, 4)] == [
+        663_040, 587_008, 477_184]
+
+
+@pytest.mark.parametrize("S", [0, 16, 255, 300, 50176 + 16])
+def test_unpadded_selection_raises(S):
+    with pytest.raises(ValueError, match="multiple of 256"):
+        fp.fused_geometry(512, S, 2, 132)
+
