@@ -58,6 +58,36 @@ prints no ok line):
    range=(0, 10)``) the kernel route is within 0.05 of the serial
    float64 oracle's g(r) at every bin.  Prints the wall, frames/s,
    pairs/s and the kernel's share of the wall.
+6. RMSD and AlignTraj on phase 4's system (built once for both phases):
+   ``RMSD(u, select='heavy')`` over all 2,048 frames, batch 512, on
+   ``backend='torch', device='cuda'``, at float32 and int16 staging, and
+   again with ``groupselections=['name CA', 'name CB']``.  The series
+   (``results['rmsd']``, ``results['group_rmsd']``) must be cuda tensors
+   of 2,048 rows, a repeat on a side stream bit-identical, and the first
+   32 frames within 1e-3 Å of the serial float64 oracle (the JAX suite's
+   ``TOL``); the int16 legs are held to the oracle run on the int16
+   coordinates against the raw reference frame (at this system's ~90 Å
+   range int16 resolves ~0.003 Å, so frame 0 alone sits ~0.0014 Å from
+   the raw oracle's 0: the wire format's error, printed, not gated).
+   Prints whether the batched SVD makes the host wait: the runtime
+   synchronisations and device-to-host copies ``torch.profiler`` records
+   in one Kabsch solve of a block and in one whole run.  Then
+   ``AlignTraj(u, select='heavy', in_memory=False)`` streams the first
+   256 frames (all 100,000 atoms) to a DCD in a temporary directory;
+   read back through ``DCDReader``, its ``RMSD(superposition=False)``
+   must agree with the fitted float32 series within 1e-3 Å.  AlignTraj
+   is cut to 256 frames (307 MB of DCD) to keep the script's time.
+7. BASELINE configs 1 and 3 at the JAX suite's sizes
+   (benchmarks/suite.py:196-268).  Config 1: ``make_protein_universe(
+   n_residues=835, n_frames=98, noise=0.3, seed=1)`` (4,175 atoms)
+   written with ``write_psf`` and ``write_dcd``, reopened as
+   ``Universe(psf, dcd)``; ``AlignedRMSF(u, select='name CA')`` with
+   ``engine=None`` and ``engine='fused'``, int16, batch 32: the fused
+   kernel's count must rise in both passes, both routes within 1e-3 Å
+   of the serial oracle and within 5e-4 Å of each other.  Config 3:
+   ``RMSD`` of the Cα of ``make_protein_universe(500, 256, noise=0.4,
+   seed=3)``, batch 64, within 1e-3 Å of the serial oracle.  Prints
+   each run's wall and frames/s.
 
 Phase 3 also holds the pair-histogram kernel (``ops/fused_distances.
 pair_histogram``, ``csrc/pair_histogram.cu``) against
@@ -141,6 +171,10 @@ ORACLE_FRAMES = 8
 # issues no FMA in its pair loop.
 FLOPS_PER_PAIR = 23
 FLOPS_PER_BINNED_PAIR = 7
+# Phase 6: RMSD on phase 4's system; AlignTraj streams 256 of its
+# 2,048 frames (all 100,000 atoms, 1.2 MB a frame) to a DCD.
+RMSD_GROUPS = ["name CA", "name CB"]
+ALIGN_FRAMES = 256
 PH_NAME = "pair_histogram"
 PH_SOURCE = "mdanalysis_mpi_tpu_torch/csrc/pair_histogram.cu"
 PH_REPLACES = "mdanalysis_mpi_tpu/ops/pallas_distances.py:164"
@@ -700,6 +734,39 @@ def wire_frames(u, sel_p, n_sel, n_frames, bs, wire):
     return x[:n_frames, :n_sel]
 
 
+def fused_passes(run):
+    """``run()`` (an ``AlignedRMSF.run``) with the fused kernel's count
+    set to 0 just before and read just after, and read again between
+    the passes → (analysis, wall s, pass-1 wall s, pass-1 launches,
+    launches)."""
+    import torch
+
+    from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
+    from mdanalysis_mpi_tpu_torch.ops import fused_planar as fp
+
+    seen = {}
+    make_pass2 = AlignedRMSF._make_pass2
+
+    def _mark_pass1(self, avg):
+        seen["launches"] = fp.planar_sums.launches
+        seen["t"] = time.perf_counter()
+        return make_pass2(self, avg)
+
+    AlignedRMSF._make_pass2 = _mark_pass1
+    try:
+        torch.cuda.synchronize()
+        fp.planar_sums.launches = 0
+        t0 = time.perf_counter()
+        r = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fp.planar_sums.launches
+    finally:
+        AlignedRMSF._make_pass2 = make_pass2
+    return (r, wall, seen.get("t", t0) - t0, seen.get("launches", 0),
+            launches)
+
+
 def e2e_main_runs(card):
     """Phase 4's main path: the system, one fused int16 AlignedRMSF run
     and its repeat on a side stream (bit-identical) → (universe,
@@ -707,7 +774,6 @@ def e2e_main_runs(card):
     import torch
 
     from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
-    from mdanalysis_mpi_tpu_torch.ops import fused_planar as fp
     from mdanalysis_mpi_tpu_torch.ops.fused_rmsf import pad_selection
 
     n_atoms, n_frames, bs = E2E_ATOMS, E2E_FRAMES, E2E_BATCH
@@ -722,33 +788,11 @@ def e2e_main_runs(card):
           f"{time.perf_counter() - t0:.1f} s")
 
     def main_path(stream=None):
-        """One fused int16 run (on ``stream``; None = the current one)
-        with the kernel counts set to 0 just before and read just after
-        → (analysis, wall s, pass-1 wall s, pass-1 launches,
-        launches)."""
-        seen = {}
-        make_pass2 = AlignedRMSF._make_pass2
-
-        def _mark_pass1(self, avg):
-            seen["launches"] = fp.planar_sums.launches
-            seen["t"] = time.perf_counter()
-            return make_pass2(self, avg)
-
-        AlignedRMSF._make_pass2 = _mark_pass1
-        try:
-            torch.cuda.synchronize()
-            fp.planar_sums.launches = 0
-            t0 = time.perf_counter()
-            with torch.cuda.stream(stream):
-                r = AlignedRMSF(u, select=sel, engine="fused").run(
-                    transfer_dtype="int16", **run_kw)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = fp.planar_sums.launches
-        finally:
-            AlignedRMSF._make_pass2 = make_pass2
-        return (r, wall, seen.get("t", t0) - t0, seen.get("launches", 0),
-                launches)
+        """One fused int16 run on ``stream`` (None = the current one)."""
+        with torch.cuda.stream(stream):
+            return fused_passes(lambda: AlignedRMSF(
+                u, select=sel, engine="fused").run(transfer_dtype="int16",
+                                                   **run_kw))
 
     fused, wall, t_pass1, pass1, launches = main_path()
     pass2 = launches - pass1
@@ -831,7 +875,7 @@ def phase_end_to_end(card):
         check(err_g <= tol_generic,
               f"{wire}: fused vs generic differ by {err_g:.3g}")
         check(err_o <= 5e-2, f"{wire}: fused vs oracle differ by {err_o:.3g}")
-    return runs["launches"]
+    return runs["launches"], u
 
 
 # ---------------------------------------------------------------- phase 5
@@ -921,6 +965,235 @@ def phase_rdf(card, u, ow, main_row):
     return launches
 
 
+# ---------------------------------------------------------------- phase 6
+
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+
+
+def host_syncs(fn):
+    """``fn()`` under ``torch.profiler`` → (its result, {runtime call
+    that makes the host wait for the card: count}, the number of
+    device→host copies).  The counts include the profile's own closing
+    ``torch.cuda.synchronize()`` (one ``cudaDeviceSynchronize``)."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    waits = collections.Counter(n for n in names if n in SYNC_CALLS)
+    dtoh = sum(n.startswith("Memcpy DtoH") for n in names)
+    return out, dict(waits), dtoh
+
+
+def timed(fn):
+    """``fn()`` between two ``torch.cuda.synchronize()`` → (result,
+    wall s)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_rmsd(card, u):
+    """Phase 6: the RMSD series and AlignTraj on phase 4's system."""
+    import tempfile
+
+    import torch
+
+    from mdanalysis_mpi_tpu_torch.analysis import RMSD, AlignTraj
+    from mdanalysis_mpi_tpu_torch.io.dcd import DCDReader
+    from mdanalysis_mpi_tpu_torch.ops.align import kabsch_from_correlation
+
+    n_frames, bs, n32, sel = E2E_FRAMES, E2E_BATCH, 32, "heavy"
+    run_kw = dict(backend="torch", device="cuda", batch_size=bs)
+    n_blocks = -(-n_frames // bs)
+    idx = u.select_atoms(sel).indices
+    # the int16 leg's oracle runs on the coordinates that wire delivers
+    # (the first block as the run stages it, exact scale) against the
+    # raw reference frame: at this system's ~90 A coordinate range int16
+    # resolves ~0.003 A, so frame 0 alone sits ~0.0014 A from the raw
+    # oracle's 0, the wire format's error and not the port's
+    u.trajectory.__dict__.pop("_quant_max_hints", None)
+    q, _, inv = u.trajectory.stage_block(0, bs, idx, "int16")
+    raw32 = u.trajectory.read_block(0, n32, sel=idx)[0]
+    u_raw = heavy_universe(raw32)
+    u_wire = heavy_universe(q[:n32].astype(np.float32) * np.float32(inv))
+    fitted = None
+    for groups in (None, RMSD_GROUPS):
+        label = "groups" if groups else "main"
+        oracle = RMSD(u, select=sel, groupselections=groups).run(
+            stop=n32, backend="serial")
+        oracle16 = RMSD(u_wire, reference=u_raw, select=sel,
+                        groupselections=groups).run(backend="serial")
+        for dtype in ("float32", "int16"):
+            def run():
+                return RMSD(u, select=sel, groupselections=groups).run(
+                    transfer_dtype=dtype, **run_kw)
+
+            # start every run's int16 scale hints from the same state
+            u.trajectory.__dict__.pop("_quant_max_hints", None)
+            r, wall = timed(run)
+            raw = r.results["rmsd"]
+            check(isinstance(raw, torch.Tensor) and raw.device.type == "cuda"
+                  and raw.shape == (n_frames,),
+                  f"rmsd {label} {dtype}: results['rmsd'] is not a cuda "
+                  f"tensor of {n_frames} values")
+            u.trajectory.__dict__.pop("_quant_max_hints", None)
+            side = torch.cuda.Stream()
+            with torch.cuda.stream(side):
+                again, wall2 = timed(run)
+            keys = ("rmsd", "group_rmsd") if groups else ("rmsd",)
+            for key in keys:
+                check(torch.equal(r.results[key], again.results[key]),
+                      f"rmsd {label} {dtype}: {key} on a side stream not "
+                      "bit-identical")
+            gate = oracle16 if dtype == "int16" else oracle
+            errs, raw_errs = [], []
+            for key in keys:
+                got = getattr(r.results, key)
+                check(np.isfinite(got).all(),
+                      f"rmsd {label} {dtype}: non-finite {key}")
+                errs.append(float(np.abs(
+                    got[:n32] - getattr(gate.results, key)).max()))
+                raw_errs.append(float(np.abs(
+                    got[:n32] - getattr(oracle.results, key)).max()))
+            wire = " on the int16 coordinates" if dtype == "int16" else ""
+            print(f"rmsd {label}: RMSD(select='heavy'"
+                  f"{', groupselections=' + str(groups) if groups else ''})"
+                  f" {len(idx)} atoms x {n_frames} frames, {dtype}, batch "
+                  f"{bs}: wall {wall:.3f} s ({n_frames / wall:.1f} "
+                  f"frames/s), side-stream repeat {wall2:.3f} s "
+                  f"({n_frames / wall2:.1f} frames/s), bit-identical; vs "
+                  f"serial oracle{wire} ({n32} frames) max |d| "
+                  f"{', '.join(f'{e:.3g}' for e in errs)} (limit 1e-3); vs "
+                  f"the raw-frame oracle "
+                  f"{', '.join(f'{e:.3g}' for e in raw_errs)}"
+                  f"{' (not gated)' if wire else ''} on {card}")
+            check(max(errs) <= 1e-3,
+                  f"rmsd {label} {dtype}: {max(errs):.3g} from the oracle")
+            if groups is None and dtype == "float32":
+                fitted = r.results.rmsd
+
+    # does the batched SVD make the host wait?  One solve on a block's
+    # worth of 3x3 matrices, then a whole float32 run
+    h = torch.randn(bs, 3, 3, device="cuda")
+    kabsch_from_correlation(h)
+    _, svd_waits, svd_dtoh = host_syncs(lambda: kabsch_from_correlation(h))
+    _, run_waits, run_dtoh = host_syncs(lambda: RMSD(u, select=sel).run(
+        transfer_dtype="float32", **run_kw))
+    print(f"rmsd host syncs (each profile's closing synchronize "
+          f"included): one Kabsch solve (torch.linalg.svd + det) of "
+          f"({bs}, 3, 3) on the card: waits {svd_waits}, {svd_dtoh} "
+          f"device-to-host copies; a whole float32 RMSD run ({n_blocks} "
+          f"blocks): waits {run_waits}, {run_dtoh} device-to-host copies")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fit.dcd")
+        at, wall = timed(lambda: AlignTraj(
+            u, select=sel, in_memory=False, filename=path).run(
+                stop=ALIGN_FRAMES, device="cuda"))
+        check(at.results.filename == path, "AlignTraj wrote elsewhere")
+        mb = os.path.getsize(path) / 2 ** 20
+        uw = at.results.universe
+        check(isinstance(uw.trajectory, DCDReader)
+              and uw.trajectory.n_frames == ALIGN_FRAMES
+              and uw.trajectory.n_atoms == u.atoms.n_atoms,
+              "the streamed DCD does not read back as "
+              f"{ALIGN_FRAMES} frames x {u.atoms.n_atoms} atoms")
+        back, wall_b = timed(lambda: RMSD(
+            uw, select=sel, superposition=False).run(**run_kw))
+        err = float(np.abs(back.results.rmsd - fitted[:ALIGN_FRAMES]).max())
+        print(f"aligntraj: AlignTraj(select='heavy', in_memory=False) "
+              f"{u.atoms.n_atoms} atoms x {ALIGN_FRAMES} frames, batch 64, "
+              f"to a {mb:.1f} MiB DCD: wall {wall:.3f} s "
+              f"({ALIGN_FRAMES / wall:.1f} frames/s); read back through "
+              f"DCDReader, RMSD(superposition=False) {wall_b:.3f} s; vs the "
+              f"fitted float32 series max |d| {err:.3g} (limit 1e-3)")
+        check(err <= 1e-3,
+              f"AlignTraj's DCD reads back {err:.3g} from the fitted RMSD")
+        uw.trajectory.close()
+
+
+# ---------------------------------------------------------------- phase 7
+
+def phase_configs(card):
+    """Phase 7: BASELINE configs 1 and 3 at their published sizes →
+    the fused kernel's launches in config 1's run (pass 1, pass 2)."""
+    import tempfile
+
+    from mdanalysis_mpi_tpu_torch import Universe
+    from mdanalysis_mpi_tpu_torch.analysis import RMSD, AlignedRMSF
+    from mdanalysis_mpi_tpu_torch.io.dcd import write_dcd
+    from mdanalysis_mpi_tpu_torch.io.psf import write_psf
+    from mdanalysis_mpi_tpu_torch.testing import make_protein_universe
+
+    # the JAX suite's config 1 (benchmarks/suite.py:196): 3341 // 4 =
+    # 835 residues of 5 atoms, 4,175 atoms
+    u0 = make_protein_universe(n_residues=835, n_frames=98, noise=0.3, seed=1)
+    n_atoms = u0.atoms.n_atoms
+    run_kw = dict(backend="torch", device="cuda", batch_size=32,
+                  transfer_dtype="int16")
+    with tempfile.TemporaryDirectory() as tmp:
+        psf, dcd = os.path.join(tmp, "adk.psf"), os.path.join(tmp, "adk.dcd")
+        write_psf(psf, u0.topology)
+        write_dcd(dcd, u0.trajectory.read_block(0, 98)[0])
+        u = Universe(psf, dcd)
+        ca = u.select_atoms("name CA")
+        check(ca.n_atoms == 835 and u.trajectory.n_frames == 98,
+              f"config 1 reopened as {ca.n_atoms} CA x "
+              f"{u.trajectory.n_frames} frames")
+        oracle = AlignedRMSF(u, select="name CA").run(
+            backend="serial").results.rmsf
+        generic, g_wall = timed(lambda: AlignedRMSF(
+            u, select="name CA").run(**run_kw))
+        fused, f_wall, _, pass1, launches = fused_passes(
+            lambda: AlignedRMSF(u, select="name CA", engine="fused").run(
+                **run_kw))
+        pass2 = launches - pass1
+        check(pass1 > 0 and pass2 > 0,
+              f"config 1 fused launches: pass1={pass1} pass2={pass2}")
+        e_g = float(np.abs(generic.results.rmsf - oracle).max())
+        e_f = float(np.abs(fused.results.rmsf - oracle).max())
+        e_fg = float(np.abs(fused.results.rmsf
+                            - generic.results.rmsf).max())
+        print(f"config 1: AlignedRMSF(select='name CA') 835 CA of "
+              f"{n_atoms} atoms x 98 frames from PSF/DCD, int16, batch 32: "
+              f"engine=None wall {g_wall:.3f} s ({98 / g_wall:.1f} "
+              f"frames/s), engine='fused' wall {f_wall:.3f} s "
+              f"({98 / f_wall:.1f} frames/s), fused launches pass1={pass1} "
+              f"pass2={pass2}; vs serial oracle max |d rmsf| generic "
+              f"{e_g:.3g}, fused {e_f:.3g} (limit 1e-3); fused vs generic "
+              f"{e_fg:.3g} (limit 5e-4) on {card}")
+        check(e_g <= 1e-3 and e_f <= 1e-3,
+              f"config 1 vs oracle: generic {e_g:.3g}, fused {e_f:.3g}")
+        check(e_fg <= 5e-4, f"config 1 fused vs generic {e_fg:.3g}")
+        u.trajectory.close()
+
+    u3 = make_protein_universe(n_residues=500, n_frames=256, noise=0.4,
+                               seed=3)
+    ca3 = u3.select_atoms("name CA")
+    r3, wall3 = timed(lambda: RMSD(ca3).run(backend="torch", device="cuda",
+                                            batch_size=64))
+    o3 = RMSD(ca3).run(backend="serial").results.rmsd
+    e3 = float(np.abs(r3.results.rmsd - o3).max())
+    print(f"config 3: RMSD(select CA) 500 atoms x 256 frames, batch 64: "
+          f"wall {wall3:.3f} s ({256 / wall3:.1f} frames/s); vs serial "
+          f"oracle max |d| {e3:.3g} (limit 1e-3) on {card}")
+    check(r3.results.rmsd.shape == (256,) and e3 <= 1e-3,
+          f"config 3 vs oracle {e3:.3g}")
+    return pass1, pass2
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "mdanalysis_mpi_tpu_torch")):
         print("FAIL: chip_smoke.py must run from a checkout of the "
@@ -938,8 +1211,12 @@ def main():
         print(f"water system: {u.atoms.n_atoms} atoms x {RDF_FRAMES} "
               f"frames, built in {time.perf_counter() - t0:.1f} s")
         ph_rows, ph_worst = phase_pair_histogram(card_name, ow)
-        launches = phase_end_to_end(card)
+        launches, u_e2e = phase_end_to_end(card)
         ph_launches = phase_rdf(card, u, ow, ph_rows["main"])
+        del u, ow
+        phase_rmsd(card, u_e2e)
+        del u_e2e
+        phase_configs(card)
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", file=sys.stderr)
         return 1

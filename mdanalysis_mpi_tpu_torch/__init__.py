@@ -7,17 +7,20 @@ imports neither it nor JAX.  Layers, as in the JAX package:
 
 - :mod:`.core` — topology, selections, ``Universe``/``AtomGroup``
   (host side, copied from the JAX package).
-- :mod:`.io` — in-memory and XTC readers, GRO topologies, the native
+- :mod:`.io` — in-memory, XTC and DCD readers, multi-file chains, the
+  streaming trajectory writer, GRO, PSF and PDB topologies, the native
   C++ codec, and the staging primitives that cut frame blocks into
   int16/int8/delta wire formats (:mod:`.staging`).
-- :mod:`.ops` — superposition and streaming-moment ops as PyTorch
-  code, the serial float64 NumPy oracle (:mod:`.ops.host`), and the
+- :mod:`.ops` — superposition, RMSD and streaming-moment ops as
+  PyTorch code, the serial float64 NumPy oracle (:mod:`.ops.host`), and the
   fused aligned-moments path whose hand-written CUDA kernel lives in
   ``csrc/fused_rmsf.cu`` (:mod:`.ops.fused_planar`).
 - :mod:`.parallel` — the serial oracle executor and the single-device
   torch executor with its device block cache.
-- :mod:`.analysis` — ``AverageStructure``, ``RMSF`` and
-  ``AlignedRMSF``.
+- :mod:`.analysis` — ``AverageStructure``, ``AlignTraj``, ``RMSF``,
+  ``RMSD``, ``AlignedRMSF``, the RDF and distance analyses,
+  ``Contacts``, ``NucPairDist``/``WatsonCrickDist`` and
+  ``AtomicDistances``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (:mod:`.device`).

@@ -89,6 +89,21 @@ def deferred_group(finalize):
     return _Group()
 
 
+def reject_updating_groups(*groups, owner: str) -> None:
+    """Loud static-snapshot contract for analyses that read
+    ``ag.indices`` at CONSTRUCTION time (and may not retain the group):
+    the run()-time scan cannot see a group that was dropped after
+    snapshotting, so such constructors must call this first."""
+    from mdanalysis_mpi_tpu_torch.core.groups import UpdatingAtomGroup
+
+    for g in groups:
+        if isinstance(g, UpdatingAtomGroup):
+            raise TypeError(
+                f"{owner} snapshots its groups into static index arrays "
+                "at construction and cannot track an UpdatingAtomGroup's "
+                "per-frame membership; pass a static group")
+
+
 class Results(dict):
     """Attribute-accessible results container (the ``.results`` idiom of
     the serial oracle, RMSF.py:9-15).

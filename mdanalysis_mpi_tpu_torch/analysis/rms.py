@@ -1,13 +1,14 @@
-"""RMSF analyses.
+"""RMSF / RMSD analyses.
 
 - :class:`RMSF` — per-atom root-mean-square fluctuation of an AtomGroup's
   coordinates as given (stock ``rms.RMSF`` oracle, RMSF.py:14-15: the
   user aligns first).
+- :class:`RMSD` — per-frame RMSD time series to a reference frame with
+  optional least-squares superposition (BASELINE config 3; the qcprot
+  use case), and the one-shot :func:`rmsd`.
 - :class:`AlignedRMSF` — the entire reference program in one analysis
   (RMSF.py:53-149): pass 1 average structure, pass 2 aligned Welford
   moments, Chan merge, ``sqrt(M2.sum(xyz)/T)`` finalize.
-
-``RMSD`` is ported with the RMSD-series slice.
 """
 
 from __future__ import annotations
@@ -15,8 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mdanalysis_mpi_tpu_torch.analysis.align import (AverageStructure,
-                                                     _f32)
+from mdanalysis_mpi_tpu_torch.analysis.align import (
+    AverageStructure, _f32, _reference_sel_coords)
 from mdanalysis_mpi_tpu_torch.analysis.base import AnalysisBase, to_numpy
 from mdanalysis_mpi_tpu_torch.core.groups import AtomGroup
 from mdanalysis_mpi_tpu_torch.ops import host
@@ -44,6 +45,96 @@ def _aligned_moments_kernel(params, batch, boxes, mask):
     w, ref_c, ref_com = params
     aligned = superpose_selection_batch(batch, w, ref_c, ref_com)
     return batch_moments(aligned, mask)
+
+
+def _rmsd_kernel(params, batch, boxes, mask):
+    """Per-frame RMSD with superposition (BASELINE config 3)."""
+    del boxes
+    from mdanalysis_mpi_tpu_torch.ops.rmsd import rmsd_batch
+
+    masses, rot_w, rmsd_w, ref_c = params
+    vals = rmsd_batch(batch, masses, ref_c, superposition=True,
+                      rot_weights=rot_w, rmsd_weights=rmsd_w)
+    return (vals * mask, mask)
+
+
+def _rmsd_groups_kernel(params, batch, boxes, mask):
+    """Main-selection superposed RMSD + per-group RMSDs (upstream
+    ``RMSD(groupselections=[...])``): the rotation fitted on the MAIN
+    selection is applied to every group (no per-group fitting), each
+    group compared to its reference coords about the main reference
+    COM.  batch is the staged UNION; slots gather main/groups.  Groups
+    are padded to a common width with 0/1 weights."""
+    from mdanalysis_mpi_tpu_torch.ops.align import (kabsch_rotation_batch,
+                                                    weighted_center)
+
+    del boxes
+    (main_slots, masses, rot_w, rmsd_w, ref_main_c, group_slots,
+     group_w, ref_groups_c) = params
+    x_main = batch[:, main_slots]
+    # ONE weighted COM + Kabsch solve serves both the main RMSD and the
+    # group transforms (rmsd_batch would redo the same SVD)
+    com = weighted_center(x_main, masses)                 # (B, 3)
+    main_c = x_main - com[:, None]
+    r = kabsch_rotation_batch(main_c, ref_main_c, rot_w)
+    aligned = torch.einsum("bni,bij->bnj", main_c, r)
+    w = rmsd_w / rmsd_w.sum()
+    d2m = ((aligned - ref_main_c[None]) ** 2).sum(-1)
+    vals = torch.sqrt(d2m @ w)
+    xg = batch[:, group_slots.reshape(-1)].reshape(
+        (batch.shape[0],) + tuple(group_slots.shape) + (3,))  # (B, K, G, 3)
+    xg_c = torch.einsum("bkgi,bij->bkgj", xg - com[:, None, None, :], r)
+    d2 = ((xg_c - ref_groups_c[None]) ** 2).sum(-1)       # (B, K, G)
+    wsum = group_w.sum(dim=1)                             # (K,)
+    gvals = torch.sqrt((d2 * group_w[None]).sum(-1) / wsum[None])
+    return (vals * mask, gvals * mask[:, None], mask)
+
+
+def _rmsd_nofit_kernel(params, batch, boxes, mask):
+    """Per-frame RMSD without superposition."""
+    del boxes
+    from mdanalysis_mpi_tpu_torch.ops.rmsd import rmsd_batch
+
+    masses, _, rmsd_w, ref_c = params
+    vals = rmsd_batch(batch, masses, ref_c, superposition=False,
+                      rmsd_weights=rmsd_w)
+    return (vals * mask, mask)
+
+
+def _real_frames(x, mask, n: int):
+    """The rows of a per-frame series whose ``mask`` is set, in frame
+    order.  On a tensor this reads nothing back from the device: a
+    stable sort of the mask puts the ``n`` real rows (``n`` known on
+    the host) first, and the gather keeps them."""
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)[np.asarray(mask) > 0.5]
+    order = torch.argsort((mask <= 0.5).to(torch.int32), stable=True)
+    return x[order[:n]]
+
+
+def rmsd(a, b, weights=None, center: bool = False,
+         superposition: bool = False) -> float:
+    """One-shot RMSD between two (N, 3) coordinate sets (upstream
+    ``rms.rmsd``): optionally remove the (weighted) centroids
+    (``center``) and/or the optimal rotation (``superposition``, which
+    implies centering — upstream semantics).  Host float64."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    if a.shape != b.shape or a.ndim != 2 or a.shape[1] != 3:
+        raise ValueError(
+            f"a and b must both be (N, 3), got {a.shape} vs {b.shape}")
+    w = (np.ones(len(a)) if weights is None
+         else np.asarray(weights, np.float64))
+    if len(w) != len(a):
+        raise ValueError(
+            f"weights has {len(w)} entries for {len(a)} atoms")
+    if center or superposition:
+        a = a - (w[:, None] * a).sum(0) / w.sum()
+        b = b - (w[:, None] * b).sum(0) / w.sum()
+    if superposition:
+        a = a @ host.qcp_rotation(a, b, None if weights is None else w)
+    d2 = ((a - b) ** 2).sum(axis=1)
+    return float(np.sqrt((w @ d2) / w.sum()))
 
 
 class RMSF(AnalysisBase):
@@ -87,6 +178,173 @@ class RMSF(AnalysisBase):
         self.results.m2 = m2
         self.results.n_frames = self.n_frames
         self.results.rmsf = rmsf_from_moments(t, m2)
+
+
+class RMSD(AnalysisBase):
+    """Per-frame RMSD to a reference frame: ``.results.rmsd`` (n_frames,).
+
+    ``superposition=True`` (default) removes the optimal rigid-body
+    rotation+translation first (the reference's qcprot machinery,
+    RMSF.py:43-51, as used by BASELINE config 3); ``weights="mass"``
+    mass-weights both the fit and the RMSD.
+
+    ``groupselections=[sel, ...]`` (upstream): each extra selection's
+    unweighted RMSD is computed per frame in the MAIN selection's
+    fitted frame (no per-group fitting — the domain-motion recipe) →
+    ``results.group_rmsd`` (n_frames, K).  Upstream packs these as
+    extra columns of ``results.rmsd``; here the main series stays
+    (n_frames,) and the groups get their own key (as in the JAX
+    package).
+
+    On the torch backend both series stay on the run's device:
+    ``results["rmsd"]`` is the tensor, ``results.rmsd`` fetches it.
+    """
+
+    def __init__(self, mobile, reference=None, select: str = "all",
+                 ref_frame: int = 0, superposition: bool = True,
+                 weights: str | None = None, groupselections=None,
+                 verbose: bool = False):
+        universe = mobile.universe if isinstance(mobile, AtomGroup) else mobile
+        super().__init__(universe, verbose)
+        self._mobile = mobile
+        self._reference = reference if reference is not None else universe
+        self._select = select
+        self._ref_frame = ref_frame
+        self._superposition = superposition
+        if weights not in (None, "mass"):
+            raise ValueError(f"weights must be None or 'mass', got {weights!r}")
+        self._weights_mode = weights
+        self._groupselections = (list(groupselections)
+                                 if groupselections else None)
+        if self._groupselections and not superposition:
+            raise ValueError(
+                "groupselections need superposition=True (their RMSD "
+                "is defined in the main selection's fitted frame)")
+
+    def _prepare(self):
+        if isinstance(self._mobile, AtomGroup):
+            # refine within the group — RMSD(u.select_atoms('segid A'),
+            # select='name CA') must stay restricted to segid A
+            ag = (self._mobile if self._select == "all"
+                  else self._mobile.select_atoms(self._select))
+        else:
+            ag = self._universe.select_atoms(self._select)
+        if ag.n_atoms == 0:
+            raise ValueError(f"selection {self._select!r} matched no atoms")
+        self._idx = ag.indices
+        self._masses = ag.masses
+        self._rmsd_w = (self._masses if self._weights_mode == "mass"
+                        else np.ones(len(self._idx)))
+        self._ref_sel_c, self._ref_com = _reference_sel_coords(
+            self._reference, self._idx, self._masses, self._ref_frame)
+        self._serial_vals: list[float] = []
+        if self._groupselections:
+            self._prepare_groups()
+
+    def _prepare_groups(self):
+        gids = []
+        for gsel in self._groupselections:
+            g = self._universe.select_atoms(gsel)
+            if g.n_atoms == 0:
+                raise ValueError(f"groupselection {gsel!r} matched no atoms")
+            gids.append(g.indices)
+        # groups padded to a common width with 0/1 weights (one
+        # rectangular gather for the batch function)
+        gmax = max(len(g) for g in gids)
+        k = len(gids)
+        self._gslots_global = np.zeros((k, gmax), np.int64)
+        self._gw = np.zeros((k, gmax), np.float64)
+        for j, g in enumerate(gids):
+            self._gslots_global[j, :len(g)] = g
+            self._gw[j, :len(g)] = 1.0
+        # reference group coords about the main-selection ref COM; the
+        # reference cursor is saved and restored (RMSF.py:80-87), so a
+        # user iterating the reference universe is not rewound
+        ref_traj = self._reference.trajectory
+        prev = ref_traj.ts.frame
+        try:
+            rp = ref_traj[self._ref_frame].positions.astype(np.float64)
+        finally:
+            ref_traj[prev]
+        self._ref_groups_c = np.stack(
+            [rp[self._gslots_global[j]] - self._ref_com for j in range(k)])
+        self._serial_gvals: list[np.ndarray] = []
+        # stage the union; np.unique sorts it, so searchsorted IS the
+        # global-index → slot map
+        self._union = np.unique(np.concatenate(
+            [self._idx, self._gslots_global.ravel()]))
+        self._main_slots = np.searchsorted(
+            self._union, self._idx).astype(np.int64)
+        self._gslots = np.searchsorted(
+            self._union, self._gslots_global).astype(np.int64)
+
+    # -- serial path --
+
+    def _single_frame(self, ts):
+        sel = ts.positions[self._idx].astype(np.float64)
+        com = host.weighted_center(sel, self._masses)
+        sel_c = sel - com
+        r = None
+        if self._superposition:
+            rot_w = self._masses if self._weights_mode == "mass" else None
+            r = host.qcp_rotation(sel_c, self._ref_sel_c, rot_w)
+            sel_c = sel_c @ r
+        w = self._rmsd_w / self._rmsd_w.sum()
+        d2 = ((sel_c - self._ref_sel_c) ** 2).sum(axis=1)
+        self._serial_vals.append(float(np.sqrt(d2 @ w)))
+        if self._groupselections:
+            pos = ts.positions.astype(np.float64)
+            gv = np.empty(len(self._gslots_global))
+            for j in range(len(gv)):
+                xg = (pos[self._gslots_global[j]] - com) @ r
+                diff2 = ((xg - self._ref_groups_c[j]) ** 2).sum(-1)
+                wj = self._gw[j]
+                gv[j] = np.sqrt((diff2 * wj).sum() / wj.sum())
+            self._serial_gvals.append(gv)
+
+    def _serial_summary(self):
+        vals = np.asarray(self._serial_vals)
+        if self._groupselections:
+            g = (np.stack(self._serial_gvals) if self._serial_gvals
+                 else np.empty((0, len(self._gslots_global))))
+            return (vals, g, np.ones(len(vals)))
+        return (vals, np.ones(len(vals)))
+
+    # -- batch path --
+
+    def _batch_select(self):
+        return self._union if self._groupselections else self._idx
+
+    def _batch_fn(self):
+        if self._groupselections:
+            return _rmsd_groups_kernel
+        return _rmsd_kernel if self._superposition else _rmsd_nofit_kernel
+
+    def _batch_params(self):
+        masses = _f32(self._masses)
+        rot_w = masses if self._weights_mode == "mass" else None
+        if self._groupselections:
+            return (torch.as_tensor(self._main_slots), masses, rot_w,
+                    _f32(self._rmsd_w), _f32(self._ref_sel_c),
+                    torch.as_tensor(self._gslots), _f32(self._gw),
+                    _f32(self._ref_groups_c))
+        return (masses, rot_w, _f32(self._rmsd_w), _f32(self._ref_sel_c))
+
+    # no _device_fold_fn: the executor concatenates the per-batch
+    # (vals, mask) series in frame order on the device
+
+    def _identity_partials(self):
+        if self._groupselections:
+            return (np.empty(0),
+                    np.empty((0, len(self._gslots_global))), np.empty(0))
+        return (np.empty(0), np.empty(0))
+
+    def _conclude(self, total):
+        mask = total[-1]
+        self.results.rmsd = _real_frames(total[0], mask, self.n_frames)
+        if self._groupselections:
+            self.results.group_rmsd = _real_frames(total[1], mask,
+                                                   self.n_frames)
 
 
 class AlignedRMSF(AnalysisBase):

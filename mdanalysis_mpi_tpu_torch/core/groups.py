@@ -468,10 +468,14 @@ class AtomGroup:
                    else ts.velocities[self._indices])
             write_gro(path, top, self.positions, dimensions=dims,
                       velocities=vel)
-        elif ext in ("pdb", "psf"):
-            raise NotImplementedError(
-                f"the port writes GRO only; its {ext.upper()} writer comes "
-                "with a later I/O slice")
+        elif ext == "pdb":
+            from mdanalysis_mpi_tpu_torch.io.pdb import write_pdb
+
+            write_pdb(path, top, self.positions, dimensions=dims)
+        elif ext == "psf":
+            from mdanalysis_mpi_tpu_torch.io.psf import write_psf
+
+            write_psf(path, top)
         else:
             raise ValueError(
                 f"unsupported extension {ext!r} for AtomGroup.write "

@@ -37,9 +37,8 @@ def _load_trajectory(source, n_atoms: int) -> ReaderBase:
     if isinstance(source, (list, tuple)):
         # upstream Universe(top, [part1.xtc, part2.xtc]) — restart
         # segments presented as one trajectory
-        raise NotImplementedError(
-            "multi-file trajectory chains are not ported yet; open one "
-            "trajectory file")
+        from mdanalysis_mpi_tpu_torch.io.chain import ChainReader
+        return ChainReader(source, n_atoms=n_atoms)
     raise TypeError(f"cannot open a trajectory from {type(source).__name__}")
 
 

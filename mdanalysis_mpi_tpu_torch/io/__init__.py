@@ -1,7 +1,8 @@
 """Trajectory and topology I/O of the port: the in-memory reader, XTC
-(with the native C++ codec, built from this package's own
-``native/trajio.cpp``) and GRO topologies.  The other formats of the
-JAX package are ported in later slices.
+and DCD (with the native C++ codec, built from this package's own
+``native/trajio.cpp``), multi-file chains (:mod:`.chain`), the
+streaming writer (:mod:`.writer`), and GRO, PSF and PDB topologies.
+The other formats of the JAX package are ported in later slices.
 """
 
 from mdanalysis_mpi_tpu_torch.io.memory import MemoryReader

@@ -993,8 +993,8 @@ int dcd_write(const char* path, int natoms, long nframes,
     icntrl[19] = 24;                        // CHARMM version
     for (int i = 0; i < 20; i++) w32(icntrl[i]);
     w32(84);
-    // title
-    const char title[80] = "Created by mdanalysis_mpi_tpu_torch trajio";
+    // title: the JAX package's, so both packages write the same bytes
+    const char title[80] = "Created by mdanalysis_mpi_tpu trajio";
     w32(4 + 80);
     w32(1);
     char buf[80] = {0};

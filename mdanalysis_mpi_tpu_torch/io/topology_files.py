@@ -2,7 +2,7 @@
 
 Dispatch point for ``Universe("prot.gro", ...)`` (RMSF.py:56 analog).
 Formats register themselves via :func:`register`; parsers live in
-sibling modules (``gro``).
+sibling modules (``gro``, ``psf``, ``pdb``).
 """
 
 from __future__ import annotations
@@ -72,7 +72,8 @@ def _autoload():
     # every topology parser here is pure Python/NumPy: an ImportError
     # is a programming error and must surface — a swallowed one would
     # unregister EVERY format and misreport "no topology parser"
-    # the port carries GRO; the other parsers of the JAX package are
-    # ported in later slices
-    from mdanalysis_mpi_tpu_torch.io import gro  # noqa: F401  (self-register)
+    # the port carries GRO, PSF and PDB; the other parsers of the JAX
+    # package are ported in later slices
+    from mdanalysis_mpi_tpu_torch.io import (  # noqa: F401  (self-register)
+        gro, pdb, psf)
     register("tpr", _tpr)

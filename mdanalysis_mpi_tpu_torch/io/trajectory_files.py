@@ -2,7 +2,7 @@
 
 Dispatch point for ``Universe(top, "traj.xtc")`` (RMSF.py:56 analog).
 Formats register via :func:`register`; readers live in sibling modules
-(``xtc``).
+(``xtc``, ``dcd``).
 """
 
 from __future__ import annotations
@@ -39,10 +39,10 @@ def _autoload():
     """Guarded by a flag, not ``_READERS`` truthiness: a format module
     imported directly self-registers before the first ``open`` call,
     which must not suppress the remaining registrations.  The port
-    carries XTC (and in-memory arrays, which need no registry); the
-    other readers of the JAX package are ported in later slices."""
+    carries XTC and DCD (and in-memory arrays, which need no registry);
+    the other readers of the JAX package are ported in later slices."""
     global _autoloaded
     if _autoloaded:
         return
     _autoloaded = True
-    from mdanalysis_mpi_tpu_torch.io import xtc  # noqa: F401  (self-register)
+    from mdanalysis_mpi_tpu_torch.io import dcd, xtc  # noqa: F401  (self-register)

@@ -57,6 +57,12 @@ def kabsch_rotation(mobile: torch.Tensor, ref: torch.Tensor,
     return kabsch_from_correlation(H)
 
 
+#: The JAX package's ``jax.vmap(kabsch_rotation, in_axes=(0, None,
+#: None))``: ``kabsch_rotation`` already batches over a leading frame
+#: axis of ``mobile`` (B, N, 3) against one ``ref`` (N, 3) → (B, 3, 3).
+kabsch_rotation_batch = kabsch_rotation
+
+
 def superpose_batch(coords: torch.Tensor, sel_idx: torch.Tensor,
                     sel_weights: torch.Tensor,
                     ref_sel_centered: torch.Tensor, ref_com: torch.Tensor,

@@ -305,3 +305,45 @@ def test_cuda_pair_histogram_rejects_cpu_mixed_inputs():
     with pytest.raises(ValueError, match="must be a contiguous float32"):
         fd._launch(a, torch.zeros((1, 8, 3)), torch.zeros((1, 3), device=dev),
                    torch.linspace(0, 1, 5, device=dev), False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+def test_cuda_rmsd_and_aligntraj_match_cpu(dtype, tmp_path):
+    """The RMSD series (with group selections) and AlignTraj, in memory
+    and streamed to a DCD, on the card against ``device="cpu"``: the
+    same algebra in float32 on both (the SVDs differ only by rounding),
+    the series left on the card."""
+    from mdanalysis_mpi_tpu_torch.analysis import RMSD, AlignTraj
+    from mdanalysis_mpi_tpu_torch.testing import make_protein_universe
+
+    dev = _card()
+    kw = dict(n_residues=40, n_frames=37, noise=0.3, seed=5)
+    run = dict(batch_size=16, transfer_dtype=dtype)
+    u = make_protein_universe(**kw)
+    sel = dict(select="name CA", groupselections=["name CB", "name N"])
+    card = RMSD(u, **sel).run(device=dev, **run)
+    cpu = RMSD(u, **sel).run(device="cpu", **run)
+    assert card.results["rmsd"].device.type == "cuda"
+    assert card.results["group_rmsd"].device.type == "cuda"
+    np.testing.assert_allclose(card.results.rmsd, cpu.results.rmsd,
+                               atol=1e-5)
+    np.testing.assert_allclose(card.results.group_rmsd,
+                               cpu.results.group_rmsd, atol=1e-5)
+    plain = RMSD(u, select="name CA C", weights="mass").run(device=dev, **run)
+    plain_cpu = RMSD(u, select="name CA C", weights="mass").run(
+        device="cpu", **run)
+    np.testing.assert_allclose(plain.results.rmsd, plain_cpu.results.rmsd,
+                               atol=1e-5)
+
+    u_card, u_cpu = make_protein_universe(**kw), make_protein_universe(**kw)
+    AlignTraj(u_card, select="name CA").run(device=dev, batch_size=16)
+    AlignTraj(u_cpu, select="name CA").run(device="cpu", batch_size=16)
+    got = u_card.trajectory.read_block(0, 37)[0]
+    np.testing.assert_allclose(got, u_cpu.trajectory.read_block(0, 37)[0],
+                               atol=1e-4)
+    path = str(tmp_path / "fit.dcd")
+    streamed = AlignTraj(u, select="name CA", in_memory=False,
+                         filename=path).run(device=dev, batch_size=16)
+    back = streamed.results.universe.trajectory.read_block(0, 37)[0]
+    np.testing.assert_array_equal(back, got)

@@ -88,6 +88,30 @@ ow = uw.select_atoms("name OW")
 g = InterRDF(ow, ow, nbins=12, range=(0.0, 4.5), engine="pallas").run(
     backend="torch", device="cpu", batch_size=2)
 assert np.isfinite(g.results.rdf).all() and g.results.count.sum() > 0
+# the RMSD / I/O slice: a PSF/DCD pair, RMSD, AlignTraj streamed to a
+# DCD, Contacts and AtomicDistances
+import os, tempfile
+from mdanalysis_mpi_tpu_torch.analysis import (RMSD, AlignTraj,
+                                               AtomicDistances, Contacts)
+from mdanalysis_mpi_tpu_torch.io.dcd import write_dcd
+from mdanalysis_mpi_tpu_torch.io.psf import write_psf
+tmp = tempfile.mkdtemp()
+write_psf(os.path.join(tmp, "p.psf"), u.topology)
+write_dcd(os.path.join(tmp, "p.dcd"), u.trajectory.read_block(0, 12)[0])
+up = Universe(os.path.join(tmp, "p.psf"), [os.path.join(tmp, "p.dcd")] * 2)
+rd = RMSD(up, select="name CA", groupselections=["name CB"]).run(
+    device="cpu", batch_size=8)
+assert rd.results.rmsd.shape == (24,) and rd.results.group_rmsd.shape == (24, 1)
+at = AlignTraj(up, select="name CA", in_memory=False,
+               filename=os.path.join(tmp, "fit.dcd")).run(device="cpu")
+assert at.results.universe.trajectory.n_frames == 24
+cb = up.select_atoms("name CB")
+ct = Contacts(up, select=("name CA", "name CB"),
+              refgroup=(up.select_atoms("name CA"), cb), radius=6.0).run(
+    device="cpu", batch_size=8)
+assert ct.results.timeseries.shape == (24, 2)
+ad = AtomicDistances(up.select_atoms("name CA"), cb).run(device="cpu")
+assert ad.results.distances.shape == (24, 8)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "mdanalysis_mpi_tpu")
              or m.startswith(("jax.", "jaxlib.", "mdanalysis_mpi_tpu.")))
@@ -106,7 +130,14 @@ if not torch.cuda.is_available():
                  lambda: InterRDF(ow, ow).run(),
                  lambda: InterRDF_s(uw, [(ow[:2], ow[2:4])]).run(),
                  lambda: ContactMap(ow).run(),
-                 lambda: PairwiseDistances(ow).run()):
+                 lambda: PairwiseDistances(ow).run(),
+                 lambda: RMSD(up).run(),
+                 lambda: AlignTraj(up).run(),
+                 lambda: Contacts(up, select=("name CA", "name CB"),
+                                  refgroup=(up.select_atoms("name CA"), cb),
+                                  radius=6.0).run(),
+                 lambda: AtomicDistances(up.select_atoms("name CA"),
+                                         cb).run()):
         try:
             call()
         except RuntimeError as exc:
