@@ -88,6 +88,27 @@ prints no ok line):
    ``RMSD`` of the Cα of ``make_protein_universe(500, 256, noise=0.4,
    seed=3)``, batch 64, within 1e-3 Å of the serial oracle.  Prints
    each run's wall and frames/s.
+8. Config 2 from an XTC and from an int16 block store (run right after
+   phase 4, on its system): the 2,048 frames written as an XTC with
+   ``io/xtc.write_xtc`` in 512-frame pieces (box 120 Å), ingested with
+   ``io/store.ingest(chunk_frames=512, quant='int16')`` (one chunk a
+   staged block; no chunk may overflow the store-wide scale), both in a
+   temporary directory the phase deletes (it fails if fewer than 3 GB
+   are free there).  The XTC leg runs ``AlignedRMSF(Universe(top, xtc),
+   select='heavy', engine='fused')``, int16, batch 512, and is held to
+   the serial float64 oracle on the decoded coordinates over 32 frames
+   within 1e-3 Å.  The store leg runs the same from ``Universe(top,
+   store_dir)``, then again from a new Universe on a side stream
+   (bit-identical): the kernel's count must rise in both passes, the
+   store's chunk reads by at least 4, the planar repacks and fused
+   blocks must rise, and the reader's float32 decode cache may hold
+   chunk 0 (the reference frame) and nothing else; the RMSF must agree
+   with ``engine=None`` on the store within 5e-4 Å and, over 32 frames,
+   with the serial oracle on the store's coordinates within 1e-3 Å.
+   Prints both legs' wall, passes and frames/s, the largest difference
+   between the legs (not gated), and the time of one chunk's backend
+   read, decode with its CRC checks, gather and planar repack, and
+   pinned copy to the card.
 
 Phase 3 also holds the pair-histogram kernel (``ops/fused_distances.
 pair_histogram``, ``csrc/pair_histogram.cu``) against
@@ -175,6 +196,12 @@ FLOPS_PER_BINNED_PAIR = 7
 # 2,048 frames (all 100,000 atoms, 1.2 MB a frame) to a DCD.
 RMSD_GROUPS = ["name CA", "name CB"]
 ALIGN_FRAMES = 256
+# Phase 8: phase 4's system written as an XTC (in bench.py's 120 Å flagship
+# box) and ingested into an int16 block store of 512-frame chunks (one
+# chunk a staged block): about 1.1 GB of XTC and 1.23 GB of store in a
+# temporary directory.
+STORE_BOX = np.array([120.0, 120.0, 120.0, 90.0, 90.0, 90.0])
+STORE_DISK_BYTES = 3_000_000_000
 PH_NAME = "pair_histogram"
 PH_SOURCE = "mdanalysis_mpi_tpu_torch/csrc/pair_histogram.cu"
 PH_REPLACES = "mdanalysis_mpi_tpu/ops/pallas_distances.py:164"
@@ -1194,6 +1221,235 @@ def phase_configs(card):
     return pass1, pass2
 
 
+# ---------------------------------------------------------------- phase 8
+
+def metric(name):
+    """The sum of a counter's series on the port's ``obs.METRICS``."""
+    from mdanalysis_mpi_tpu_torch import obs
+
+    return sum(obs.METRICS.snapshot().get(
+        name, {"values": {}})["values"].values())
+
+
+def write_frames_xtc(path, u, n_frames, chunk):
+    """The universe's frames as one XTC, written ``chunk`` frames at a
+    time (XTC frames are self-delimiting, so the pieces concatenate
+    byte-wise into one trajectory) → seconds."""
+    from mdanalysis_mpi_tpu_torch.io.xtc import write_xtc
+
+    part = path + ".part"
+    t0 = time.perf_counter()
+    with open(path, "wb") as out:
+        for lo in range(0, n_frames, chunk):
+            hi = min(lo + chunk, n_frames)
+            frames, _ = u.trajectory.read_block(lo, hi)
+            write_xtc(part, frames, dimensions=STORE_BOX,
+                      times=np.arange(lo, hi, dtype=np.float32),
+                      steps=np.arange(lo, hi, dtype=np.int32))
+            with open(part, "rb") as f:
+                out.write(f.read())
+    os.remove(part)
+    return time.perf_counter() - t0
+
+
+def leg_text(n_frames, wall, t_pass1, pass1, launches):
+    return (f"wall {wall:.3f} s, {n_frames / wall:.1f} frames/s (pass 1 "
+            f"{t_pass1:.3f} s, pass 2 {wall - t_pass1:.3f} s), launches "
+            f"pass1={pass1} pass2={launches - pass1}")
+
+
+def store_split(card, store, sel_p, bs):
+    """Where pass 1's time goes from the store, on chunk 1 of the store
+    (one staged block): the backend read, the decode with its CRC
+    checks, the gather and planar repack of ``_stage_direct`` (chunk
+    already decoded), and the pinned host-to-device copy.  Three
+    repetitions each, in that order; the chunk comes from the page
+    cache (the store was just written)."""
+    import torch
+
+    from mdanalysis_mpi_tpu_torch.io.store import StoreReader, codec
+
+    sr = StoreReader(store)
+    ci = 1
+    entry = sr._entries[ci]
+    lo, hi = entry["start"], entry["stop"]
+    dev = torch.device("cuda")
+    times = {k: [] for k in ("get_bytes", "decode_chunk", "stage_direct",
+                             "pin", "h2d")}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        blob = sr._backend.get_bytes(entry["file"])
+        t1 = time.perf_counter()
+        codec.decode_chunk(blob, path=sr._chunk_path(ci),
+                           expect_fps=entry.get("fps"))
+        t2 = time.perf_counter()
+        sr._load_raw(ci)
+        t3 = time.perf_counter()
+        q, _, _ = sr._stage_direct(lo, hi, sel_p, layout="planar")
+        t4 = time.perf_counter()
+        pinned = torch.from_numpy(q).pin_memory()
+        t5 = time.perf_counter()
+        on_card = pinned.to(dev, non_blocking=True)
+        torch.cuda.synchronize()
+        t6 = time.perf_counter()
+        for k, v in (("get_bytes", t1 - t0), ("decode_chunk", t2 - t1),
+                     ("stage_direct", t4 - t3), ("pin", t5 - t4),
+                     ("h2d", t6 - t5)):
+            times[k].append(v)
+        del on_card, pinned
+    check(q.shape == (3, hi - lo, len(sel_p)) and q.dtype == np.int16,
+          f"store split staged {q.shape} {q.dtype}")
+    text = ", ".join(f"{k} " + "/".join(f"{v * 1e3:.1f}" for v in vs)
+                     for k, vs in times.items())
+    print(f"store split of one chunk ({hi - lo} frames, {len(blob)} bytes "
+          f"read, {q.nbytes} bytes staged as (3, {hi - lo}, {len(sel_p)}) "
+          f"int16), ms for 3 repetitions: {text} on {card}")
+    return {k: min(vs) for k, vs in times.items()}
+
+
+def phase_store(card, u):
+    """Phase 8: config 2 from an XTC and from an int16 block store → the
+    fused kernel's launches in the XTC leg's run and the store leg's
+    first run."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mdanalysis_mpi_tpu_torch import Universe
+    from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
+    from mdanalysis_mpi_tpu_torch.io.store import ingest
+    from mdanalysis_mpi_tpu_torch.ops.fused_rmsf import pad_selection
+
+    t_phase = time.perf_counter()
+    n_frames, bs, n32, sel = E2E_FRAMES, E2E_BATCH, 32, "heavy"
+    run_kw = dict(backend="torch", device="cuda", batch_size=bs,
+                  transfer_dtype="int16")
+    top = u.topology
+    n_sel = len(u.select_atoms(sel).indices)
+    sel_p = pad_selection(u.select_atoms(sel).indices)[0]
+    tmp = tempfile.mkdtemp(prefix="mdtpu_store_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        check(free >= STORE_DISK_BYTES,
+              f"phase 8 needs {STORE_DISK_BYTES / 1e9:.1f} GB of temporary "
+              f"disk at {tmp}; {free / 1e9:.1f} GB free")
+        xtc = os.path.join(tmp, "config2.xtc")
+        wall_w = write_frames_xtc(xtc, u, n_frames, bs)
+        print(f"store xtc: {n_frames} frames x {u.atoms.n_atoms} atoms "
+              f"written with io/xtc.write_xtc in {bs}-frame pieces: "
+              f"{wall_w:.2f} s, {os.path.getsize(xtc)} bytes")
+        store = os.path.join(tmp, "config2.store")
+        summary = ingest(xtc, store, chunk_frames=bs, quant="int16")
+        print(f"store ingest: wall_s {summary['wall_s']}, store_ingest_fps "
+              f"{summary['store_ingest_fps']}, bytes {summary['bytes']}, "
+              f"chunks {summary['n_chunks']}, scale_overflow_chunks "
+              f"{summary['scale_overflow_chunks']}")
+        check(summary["n_chunks"] == -(-n_frames // bs),
+              f"ingest made {summary['n_chunks']} chunks")
+        check(summary["scale_overflow_chunks"] == 0,
+              f"{summary['scale_overflow_chunks']} chunks overflowed the "
+              "store-wide scale; the raw-slice path was not measured")
+
+        # the XTC decode leg: every pass-1 block decoded and quantized
+        # on the host (one adaptive scale per block)
+        u_xtc = Universe(top, xtc)
+        fx, wall, t1, p1, lx = fused_passes(lambda: AlignedRMSF(
+            u_xtc, select=sel, engine="fused").run(**run_kw))
+        check(p1 > 0 and lx - p1 > 0,
+              f"xtc leg launches: pass1={p1} pass2={lx - p1}")
+        rmsf_x = fx.results.rmsf
+        check(rmsf_x.shape == (n_sel,) and np.isfinite(rmsf_x).all(),
+              f"xtc leg RMSF shape {rmsf_x.shape} / non-finite values")
+        # the timed run itself, against the plain engine on the same
+        # XTC and the same per-block wire
+        generic_x = AlignedRMSF(u_xtc, select=sel).run(**run_kw)
+        err_gx = float(np.abs(rmsf_x - generic_x.results.rmsf).max())
+        oracle_x = AlignedRMSF(u_xtc, select=sel).run(stop=n32,
+                                                      backend="serial")
+        f32_x = AlignedRMSF(u_xtc, select=sel, engine="fused").run(
+            stop=n32, **run_kw)
+        err_x = float(np.abs(f32_x.results.rmsf
+                             - oracle_x.results.rmsf).max())
+        print(f"store xtc leg: AlignedRMSF(Universe(top, xtc), "
+              f"engine='fused') int16 B={bs}: "
+              f"{leg_text(n_frames, wall, t1, p1, lx)}; vs engine=None on "
+              f"the XTC ({n_frames} frames) {err_gx:.3g} (limit 5e-4); vs "
+              f"serial oracle on the decoded coordinates ({n32} frames) "
+              f"{err_x:.3g} (limit 1e-3) on {card}")
+        check(err_gx <= 5e-4, f"xtc fused vs generic {err_gx:.3g}")
+        check(err_x <= 1e-3, f"xtc leg vs oracle {err_x:.3g}")
+        u_xtc.trajectory.close()
+        del u_xtc, fx, f32_x, generic_x
+
+        # the store leg: int16 chunk slices staged planar, no host f32
+        counters = ("mdtpu_store_chunks_read_total",
+                    "mdtpu_fused_planar_repacks_total",
+                    "mdtpu_fused_blocks_total")
+
+        def store_run(stream=None):
+            us = Universe(top, store)
+            before = {k: metric(k) for k in counters}
+            with torch.cuda.stream(stream):
+                out = fused_passes(lambda: AlignedRMSF(
+                    us, select=sel, engine="fused").run(**run_kw))
+            grew = {k: metric(k) - before[k] for k in counters}
+            f32 = sorted(us.trajectory._f32)
+            return out, grew, f32
+
+        (fs, wall, t1, p1, ls), grew, f32 = store_run()
+        check(p1 > 0 and ls - p1 > 0,
+              f"store leg launches: pass1={p1} pass2={ls - p1}")
+        check(grew["mdtpu_store_chunks_read_total"] >= -(-n_frames // bs),
+              f"store leg read {grew['mdtpu_store_chunks_read_total']} "
+              "chunks")
+        check(grew["mdtpu_fused_planar_repacks_total"] > 0
+              and grew["mdtpu_fused_blocks_total"] > 0,
+              f"store leg counters did not rise: {grew}")
+        check(set(f32) <= {0},
+              f"staged blocks decoded host f32 chunks {f32}")
+        rmsf_s = fs.results.rmsf
+        check(np.isfinite(rmsf_s).all(), "store leg RMSF not finite")
+        print(f"store leg: AlignedRMSF(Universe(top, store_dir), "
+              f"engine='fused') int16 B={bs}: "
+              f"{leg_text(n_frames, wall, t1, p1, ls)}; counters "
+              + ", ".join(f"{k} +{v:g}" for k, v in grew.items())
+              + f"; f32 chunks decoded {f32} on {card}")
+        del fs
+        (again, wall2, t2, p2, l2), _, f32b = store_run(torch.cuda.Stream())
+        check(np.array_equal(rmsf_s, again.results.rmsf),
+              "store leg repeat not bit-identical to the first run")
+        check(set(f32b) <= {0}, f"repeat decoded host f32 chunks {f32b}")
+        print(f"store leg repeat (a new Universe on a side stream): "
+              f"{leg_text(n_frames, wall2, t2, p2, l2)}; bit-identical")
+        del again
+
+        generic = AlignedRMSF(Universe(top, store), select=sel).run(**run_kw)
+        err_g = float(np.abs(rmsf_s - generic.results.rmsf).max())
+        oracle_s = AlignedRMSF(Universe(top, store), select=sel).run(
+            stop=n32, backend="serial")
+        f32_s = AlignedRMSF(Universe(top, store), select=sel,
+                            engine="fused").run(stop=n32, **run_kw)
+        err_o = float(np.abs(f32_s.results.rmsf
+                             - oracle_s.results.rmsf).max())
+        err_sx = float(np.abs(rmsf_s - rmsf_x).max())
+        print(f"store leg: fused vs engine=None on the store "
+              f"({n_frames} frames) {err_g:.3g} (limit 5e-4); vs serial "
+              f"oracle on the store's coordinates ({n32} frames) "
+              f"{err_o:.3g} (limit 1e-3); store leg vs xtc leg "
+              f"{err_sx:.3g} (limit 1e-3: both are int16 wires of the same "
+              f"frames, one store-wide scale against one adaptive scale per "
+              f"block)")
+        check(err_g <= 5e-4, f"store fused vs generic {err_g:.3g}")
+        check(err_o <= 1e-3, f"store fused vs oracle {err_o:.3g}")
+        check(err_sx <= 1e-3, f"store leg vs xtc leg {err_sx:.3g}")
+        store_split(card, store, sel_p, bs)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"store phase: {time.perf_counter() - t_phase:.1f} s")
+    return lx + ls
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "mdanalysis_mpi_tpu_torch")):
         print("FAIL: chip_smoke.py must run from a checkout of the "
@@ -1212,6 +1468,7 @@ def main():
               f"frames, built in {time.perf_counter() - t0:.1f} s")
         ph_rows, ph_worst = phase_pair_histogram(card_name, ow)
         launches, u_e2e = phase_end_to_end(card)
+        launches += phase_store(card, u_e2e)
         ph_launches = phase_rdf(card, u, ow, ph_rows["main"])
         del u, ow
         phase_rmsd(card, u_e2e)

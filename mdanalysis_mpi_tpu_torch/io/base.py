@@ -280,18 +280,16 @@ QUANT_TARGETS = {"int16": 32000.0, "int8": 120.0}
 QUANT_INT_MAX = {"int16": 32767.0, "int8": 127.0}
 
 
-#: Number of :func:`planar_repack` calls in this process.
-PLANAR_REPACKS = 0
-
-
 def planar_repack(q: np.ndarray) -> np.ndarray:
     """Repack an interleaved ``(B, S, 3)`` staged block to the planar
     ``(3, B, S)`` component-plane layout the fused kernel
     consumes (ops/fused_planar.py).  This is THE one host copy the
     planar path pays — on quantized (int16/int8) bytes, behind the
-    staging boundary, counted in :data:`PLANAR_REPACKS`."""
-    global PLANAR_REPACKS
-    PLANAR_REPACKS += 1
+    staging boundary, counted in
+    ``mdtpu_fused_planar_repacks_total``."""
+    from mdanalysis_mpi_tpu_torch import obs
+
+    obs.METRICS.inc("mdtpu_fused_planar_repacks_total")
     return np.ascontiguousarray(np.moveaxis(q, 2, 0))
 
 

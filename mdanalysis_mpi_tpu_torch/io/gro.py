@@ -80,9 +80,10 @@ def parse_gro(path: str) -> Topology:
 def write_gro(path: str, topology: Topology, coordinates: np.ndarray,
               dimensions: np.ndarray | None = None,
               velocities: np.ndarray | None = None,
-              title: str = "written by mdanalysis_mpi_tpu_torch") -> None:
+              title: str = "written by mdanalysis_mpi_tpu") -> None:
     """Write one frame of Å coordinates (and optional Å/ps velocities)
-    as a GRO file (fixture writer)."""
+    as a GRO file (fixture writer).  The default title is the JAX
+    package's, so both packages write the same bytes."""
     coords = np.asarray(coordinates, dtype=np.float64) / _NM_TO_A
     if coords.ndim == 3:
         coords = coords[0]

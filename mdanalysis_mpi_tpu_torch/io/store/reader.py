@@ -1,0 +1,445 @@
+"""StoreReader: random-access trajectory reads from the block store.
+
+A :class:`~mdanalysis_mpi_tpu_torch.io.base.ReaderBase` over an ingested
+store, so every consumer of the reader boundary — serial iteration,
+``read_block``, ``stage_block``/``stage_cached``, executors, prefetch,
+``HostStageCache``, fleet shard children — works unchanged.  What
+changes is the cost:
+
+- **staging fast path**: when the requested wire format equals the
+  store's quantization tier and the covered chunks share one scale
+  (the ingester's store-wide-scale invariant), ``stage_block`` serves
+  the raw quantized chunk slices directly — selection gather on int16,
+  no XDR decode, no float32 materialization, no re-quantize.  A
+  chunk-aligned request (chunk_frames == the executor batch, the
+  ingest default) is a pure slice.
+- **exact-slice fetches**: only the chunks covering ``[start, stop)``
+  are ever read — a ``shard_windows`` child on a fleet host fetches
+  its shard's chunks and nothing else.
+- **verified reads**: every chunk fetch re-computes the per-array
+  fingerprints and compares them against the chunk's CRC-framed
+  header AND the manifest's stage-time record (``codec.decode_chunk``)
+  — the SDC-scrub comparison moved to read time.  Rejects count
+  ``mdtpu_store_chunk_crc_rejects_total`` labeled by taxonomy half
+  (``reason="corrupt"`` → typed :class:`~mdanalysis_mpi_tpu_torch.utils.
+  integrity.StoreCorruptError`, fatal bytes; ``reason="unavailable"``
+  → :class:`~mdanalysis_mpi_tpu_torch.utils.integrity.
+  StoreUnavailableError`, a retryable OSError the policy layer may
+  heal from another source).
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+
+import numpy as np
+
+from mdanalysis_mpi_tpu_torch.core.timestep import Timestep
+from mdanalysis_mpi_tpu_torch.io.base import ReaderBase, norm_quantize
+from mdanalysis_mpi_tpu_torch.io.store import codec
+from mdanalysis_mpi_tpu_torch.io.store.backend import LocalDirBackend
+from mdanalysis_mpi_tpu_torch.io.store.manifest import (
+    load_any_manifest, load_manifest,
+)
+from mdanalysis_mpi_tpu_torch.utils import integrity as _integrity
+
+#: Decoded-chunk LRU depths: raw (quantized) chunks serve the staging
+#: fast path, f32 chunks serve per-frame/oracle reads.  Small by
+#: design — the DeviceBlockCache / HostStageCache above this layer are
+#: where staged blocks actually live; these only keep sequential
+#: access from re-verifying the same chunk per frame.
+_RAW_CACHE_CHUNKS = 4
+_F32_CACHE_CHUNKS = 2
+
+
+def _count(metric: str, **labels) -> None:
+    from mdanalysis_mpi_tpu_torch.obs import METRICS
+
+    METRICS.inc(metric, **labels)
+
+
+class StoreEndOfFeed(Exception):
+    """The follow-mode reader is caught up AND the feed has sealed —
+    there will never be more frames.  Typed apart from
+    :class:`~mdanalysis_mpi_tpu_torch.utils.integrity.StoreCorruptError`
+    (bad bytes) and a plain timeout (feed alive but stalled): end of
+    feed is the streaming loop's CLEAN exit signal, not a fault."""
+
+
+class StoreReader(ReaderBase):
+    """Random-access reader over an ingested chunk store.
+
+    ``follow=True`` opens a GROWING store (docs/STREAMING.md): the
+    live tail manifest is accepted when no closed manifest exists yet,
+    and :meth:`refresh` re-polls it, extending ``n_frames``
+    monotonically as the writer seals chunks.  Everything below
+    ``n_frames`` is immutable (sealed chunks never change), so the
+    decoded-chunk caches, the staging fast path and every consumer of
+    the ``stage_block``/``stage_cached`` boundary — executors,
+    prefetch, scan-fold dispatch, the quantized/planar paths — work on
+    a growing store untouched."""
+
+    def __init__(self, path: str | None = None, n_atoms: int | None = None,
+                 backend=None, follow: bool = False):
+        if backend is None:
+            if path is None:
+                raise ValueError("StoreReader needs a path or a backend")
+            backend = LocalDirBackend(os.fspath(path))
+        self._backend = backend
+        self._path = os.fspath(path) if path is not None \
+            else backend.describe()
+        self._follow = bool(follow)
+        if follow:
+            man, sealed = load_any_manifest(backend)
+        else:
+            man, sealed = load_manifest(backend), True
+        self._sealed = sealed
+        self._epoch = int(man.get("epoch", 0))
+        self._man = man
+        self._nf = int(man["n_frames"])
+        self._na = int(man["n_atoms"])
+        self._cf = int(man["chunk_frames"])
+        self._quant = None if man["quant"] == "f32" else man["quant"]
+        self._entries = man["chunks"]
+        if n_atoms is not None and n_atoms != self._na:
+            raise ValueError(
+                f"store {self._path!r} has {self._na} atoms, "
+                f"expected {n_atoms}")
+        self._lock = threading.RLock()
+        self._raw: dict = {}      # ci -> (arrays, meta), LRU-bounded
+        self._f32: dict = {}      # ci -> f32 coords, LRU-bounded
+
+    # ---- ReaderBase surface ----
+
+    @property
+    def n_frames(self) -> int:
+        return self._nf
+
+    @property
+    def n_atoms(self) -> int:
+        return self._na
+
+    @property
+    def quant(self) -> str:
+        """The store's quantization tier ("int16"/"int8"/"f32")."""
+        return self._man["quant"]
+
+    @property
+    def chunk_frames(self) -> int:
+        return self._cf
+
+    def reopen(self) -> "StoreReader":
+        return StoreReader(self._path, backend=self._backend,
+                           follow=self._follow)
+
+    # ---- follow mode ----
+
+    @property
+    def follow(self) -> bool:
+        return self._follow
+
+    @property
+    def sealed(self) -> bool:
+        """True once the closed manifest exists — ``n_frames`` is
+        final.  Non-follow readers are sealed by construction."""
+        return self._sealed
+
+    @property
+    def epoch(self) -> int:
+        """Tail-manifest epoch last observed (0 for a closed store)."""
+        return self._epoch
+
+    def refresh(self) -> bool:
+        """Re-poll the manifests; returns True when new frames
+        appeared.  ``n_frames`` only ever GROWS — a tail that shrank
+        or rewound its epoch means the writer restarted underneath
+        this reader's immutable-prefix assumption, which is corruption
+        from where the reader stands, raised typed."""
+        if not self._follow or self._sealed:
+            return False
+        man, sealed = load_any_manifest(self._backend)
+        nf = int(man["n_frames"])
+        epoch = int(man.get("epoch", 0))
+        if nf < self._nf or (not sealed and epoch < self._epoch):
+            _integrity.note_corrupt("store", self._path)
+            raise _integrity.integrity_error(
+                "store",
+                f"store {self._path!r} shrank under a follow reader "
+                f"({self._nf} → {nf} frames, epoch {self._epoch} → "
+                f"{epoch}): the writer restarted; sealed chunks are "
+                "no longer trustworthy", self._path)
+        if self._nf == 0:
+            # nothing served yet: adopt geometry — a live store's
+            # empty epoch-1 tail may not know n_atoms until the
+            # writer's first chunk seals
+            self._na = int(man["n_atoms"])
+            self._cf = int(man["chunk_frames"])
+            self._quant = (None if man["quant"] == "f32"
+                           else man["quant"])
+        elif (int(man["n_atoms"]) != self._na
+                or int(man["chunk_frames"]) != self._cf
+                or man["quant"] != self._man["quant"]):
+            _integrity.note_corrupt("store", self._path)
+            raise _integrity.integrity_error(
+                "store",
+                f"store {self._path!r} changed geometry under a "
+                "follow reader (atoms/chunk_frames/quant)", self._path)
+        grew = nf > self._nf
+        self._man = man
+        self._entries = man["chunks"]
+        self._nf = nf
+        self._epoch = epoch if not sealed else self._epoch
+        self._sealed = sealed
+        return grew
+
+    def wait_frames(self, n: int, timeout_s: float = 5.0,
+                    poll_interval_s: float = 0.02,
+                    clock=None, sleep=None) -> int:
+        """Block until the store serves >= ``n`` frames; returns the
+        new ``n_frames``.  Raises :class:`StoreEndOfFeed` when the
+        feed seals with fewer (the feed is over — nothing to wait
+        for), and :class:`TimeoutError` when the feed is still open
+        but stopped growing for ``timeout_s`` (a stall the caller's
+        park/resume policy owns)."""
+        import time as _time
+
+        clock = clock or _time.monotonic
+        sleep = sleep or _time.sleep
+        deadline = clock() + timeout_s
+        while True:
+            self.refresh()
+            if self._nf >= n:
+                return self._nf
+            if self._sealed:
+                raise StoreEndOfFeed(
+                    f"store {self._path!r} sealed at {self._nf} "
+                    f"frames; {n} will never arrive")
+            if clock() >= deadline:
+                raise TimeoutError(
+                    f"store {self._path!r} stuck at {self._nf} frames "
+                    f"for {timeout_s}s waiting for {n}")
+            sleep(poll_interval_s)
+
+    # ---- chunk access ----
+
+    def _chunk_path(self, ci: int) -> str:
+        return os.path.join(self._backend.describe(),
+                            self._entries[ci]["file"])
+
+    def _load_raw(self, ci: int):
+        """Fetch + verify chunk ``ci`` → (arrays, meta).  The read-time
+        scrub boundary: fingerprint mismatches are counted, marked on
+        the span timeline, and raised typed.
+
+        The lock guards ONLY the cache lookup/insert — the disk fetch
+        and the full-payload CRC verification run outside it, so a
+        prefetch thread and a worker staging through one shared reader
+        keep their overlap (the file-reader stage path this replaces
+        takes no lock at all).  Two threads racing the same cold chunk
+        may both verify it; the first insert wins (double-checked) and
+        the loser adopts it."""
+        with self._lock:
+            hit = self._raw.get(ci)
+            if hit is not None:
+                # refresh recency (true LRU): a cyclic working set of
+                # cache-size+1 chunks must not evict exactly the
+                # next-needed chunk every access
+                self._raw.pop(ci)
+                self._raw[ci] = hit
+                return hit
+            entry = self._entries[ci]
+        try:
+            blob = self._backend.get_bytes(entry["file"])
+            arrays, meta = codec.decode_chunk(
+                blob, path=self._chunk_path(ci),
+                expect_fps=entry.get("fps"))
+        except (_integrity.IntegrityError, OSError) as exc:
+            from mdanalysis_mpi_tpu_torch.obs import span_event
+
+            # the taxonomy split drives the reject label AND the
+            # retry contract: "unavailable" (missing replica, remote
+            # outage) stays an OSError the policy layer retries /
+            # re-sources; "corrupt" (provably bad bytes) is fatal and
+            # never re-fetched from the same source as transient
+            reason = ("unavailable"
+                      if isinstance(exc,
+                                    _integrity.StoreUnavailableError)
+                      else "corrupt")
+            _count("mdtpu_store_chunk_crc_rejects_total",
+                   reason=reason)
+            span_event("store_chunk_reject", chunk=ci,
+                       path=self._chunk_path(ci), reason=reason)
+            if isinstance(exc, _integrity.StoreUnavailableError):
+                raise
+            if isinstance(exc, _integrity.IntegrityError):
+                raise
+            # a chunk the manifest promises but the backend produced
+            # unreadably (torn file, permission) is the truncation
+            # case taken to its limit — same typed taxonomy, so upper
+            # layers route it as corruption, not as a random OSError
+            _integrity.note_corrupt("store", self._chunk_path(ci))
+            raise _integrity.integrity_error(
+                "store",
+                f"store chunk {self._chunk_path(ci)!r} is in the "
+                f"manifest but unreadable ({type(exc).__name__}: "
+                f"{exc})", self._chunk_path(ci)) from exc
+        _count("mdtpu_store_chunks_read_total")
+        # usage charge site: one decoded chunk, attributed to the
+        # backend rung that actually served it (local / remote / cache)
+        from mdanalysis_mpi_tpu_torch.obs import usage as _usage
+
+        _usage.charge_current_store(
+            source=getattr(self._backend, "usage_source", "local"),
+            chunks=1, nbytes=len(blob))
+        with self._lock:
+            hit = self._raw.get(ci)
+            if hit is not None:
+                return hit                 # lost the race: adopt
+            self._raw[ci] = (arrays, meta)
+            while len(self._raw) > _RAW_CACHE_CHUNKS:
+                self._raw.pop(next(iter(self._raw)))
+            return arrays, meta
+
+    def _chunk_f32(self, ci: int):
+        """(arrays, dequantized f32 coords) for chunk ``ci`` — the
+        per-frame / float32-read tier (one multiply per element; the
+        staging fast path never comes here)."""
+        arrays, meta = self._load_raw(ci)
+        with self._lock:
+            x = self._f32.get(ci)
+            if x is not None:
+                self._f32.pop(ci)          # refresh recency (LRU)
+                self._f32[ci] = x
+            if x is None:
+                c = arrays["coords"]
+                if self._quant is None:
+                    x = c
+                else:
+                    x = c.astype(np.float32) * np.float32(
+                        meta["inv_scale"])
+                self._f32[ci] = x
+                while len(self._f32) > _F32_CACHE_CHUNKS:
+                    self._f32.pop(next(iter(self._f32)))
+            return arrays, x
+
+    # ---- reads ----
+
+    def _read_frame(self, i: int) -> Timestep:
+        ci, k = divmod(i, self._cf)
+        arrays, x = self._chunk_f32(ci)
+        dims = None
+        if "boxes" in arrays:
+            dims = np.array(arrays["boxes"][k])
+            if not dims[:3].any():
+                dims = None
+        t = (float(arrays["times"][k]) if "times" in arrays
+             else float(i))
+        return Timestep(x[k].copy(), frame=i, time=t, dimensions=dims)
+
+    def frame_times(self, frames) -> np.ndarray | None:
+        if not self._man.get("has_times"):
+            return None
+        idx = np.asarray(list(frames), dtype=np.int64)
+        out = np.empty(len(idx), dtype=np.float64)
+        for ci in np.unique(idx // self._cf):
+            m = (idx // self._cf) == ci
+            arrays, _meta = self._load_raw(int(ci))
+            out[m] = arrays["times"][idx[m] - int(ci) * self._cf]
+        return out
+
+    def read_block(self, start: int, stop: int,
+                   sel: np.ndarray | None = None, step: int = 1):
+        if self.transformations:
+            # transformed reads go through the generic
+            # read-transform-gather loop (ReaderBase), like XTCReader
+            return ReaderBase.read_block(self, start, stop, sel=sel,
+                                         step=step)
+        if not 0 <= start <= stop <= self._nf:
+            raise IndexError(
+                f"block [{start},{stop}) out of range [0,{self._nf}]")
+        if step < 1:
+            raise ValueError(f"step must be >= 1, got {step}")
+        idx = np.arange(start, stop, step)
+        n = self._na if sel is None else len(sel)
+        out = np.empty((len(idx), n, 3), dtype=np.float32)
+        boxes = None
+        pos = np.arange(len(idx))
+        for ci in np.unique(idx // self._cf):
+            m = (idx // self._cf) == ci
+            local = idx[m] - int(ci) * self._cf
+            arrays, x = self._chunk_f32(int(ci))
+            blk = x[local]
+            out[pos[m]] = blk if sel is None else blk[:, sel]
+            if "boxes" in arrays:
+                if boxes is None:
+                    # zeros, not empty: frames before the first boxed
+                    # chunk must not leak uninitialized memory
+                    boxes = np.zeros((len(idx), 6), dtype=np.float32)
+                boxes[pos[m]] = arrays["boxes"][local]
+        return out, boxes
+
+    # ---- staging ----
+
+    def stage_block(self, start: int, stop: int,
+                    sel: np.ndarray | None = None, quantize=False,
+                    layout: str = "interleaved"):
+        """Staging primitive with the decode REMOVED: a request in the
+        store's own wire format is served as raw quantized slices (see
+        module docs).  A ``layout='planar'`` request is honored inside
+        the fast path by transposing each raw chunk slice to component
+        planes — still zero float32 materialization (``_f32`` /
+        ``_chunk_f32`` untouched), the quantized bytes just land in the
+        ``(3, B, S)`` shape the fused kernel reads (csrc/fused_rmsf.cu).  Everything
+        else — f32 requests, cross-tier requests, mixed-scale chunk
+        spans, transformed readers — rides the generic ``ReaderBase``
+        path over :meth:`read_block` (which still never touches the
+        original file)."""
+        qmode = norm_quantize(quantize)
+        if (qmode is not None and qmode == self._quant
+                and not self.transformations and start < stop):
+            fast = self._stage_direct(start, stop, sel, layout=layout)
+            if fast is not None:
+                return fast
+        return ReaderBase.stage_block(self, start, stop, sel=sel,
+                                      quantize=quantize, layout=layout)
+
+    def _stage_direct(self, start: int, stop: int, sel,
+                      layout: str = "interleaved"):
+        """(q, boxes, inv_scale) from raw chunk slices, or None when
+        the covered chunks do not share one scale (an ingest-margin
+        overflow chunk — the caller requantizes through f32)."""
+        if not 0 <= start <= stop <= self._nf:
+            raise IndexError(
+                f"block [{start},{stop}) out of range [0,{self._nf}]")
+        planar = layout == "planar"
+        cis = range(start // self._cf, (stop - 1) // self._cf + 1)
+        loaded = [(ci, *self._load_raw(ci)) for ci in cis]
+        inv_scales = {m["inv_scale"] for _, _, m in loaded}
+        if len(inv_scales) != 1:
+            return None
+        parts = []
+        box_parts = []
+        have_boxes = False
+        for ci, arrays, _meta in loaded:
+            lo = max(start, ci * self._cf) - ci * self._cf
+            hi = min(stop, (ci + 1) * self._cf) - ci * self._cf
+            c = arrays["coords"][lo:hi]
+            c = c if sel is None else c[:, sel]
+            if planar:
+                from mdanalysis_mpi_tpu_torch.io.base import planar_repack
+
+                c = planar_repack(c)
+            parts.append(c)
+            if "boxes" in arrays:
+                have_boxes = True
+                box_parts.append(arrays["boxes"][lo:hi])
+            else:
+                box_parts.append(
+                    np.zeros((hi - lo, 6), dtype=np.float32))
+        q = (parts[0] if len(parts) == 1
+             else np.concatenate(parts, axis=1 if planar else 0))
+        boxes = (None if not have_boxes
+                 else box_parts[0] if len(box_parts) == 1
+                 else np.concatenate(box_parts))
+        return q, boxes, np.float32(inv_scales.pop())

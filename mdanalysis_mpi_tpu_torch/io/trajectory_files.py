@@ -2,7 +2,9 @@
 
 Dispatch point for ``Universe(top, "traj.xtc")`` (RMSF.py:56 analog).
 Formats register via :func:`register`; readers live in sibling modules
-(``xtc``, ``dcd``).
+(``xtc``, ``dcd``).  A directory opens as an ingested block store and an
+``http(s)://`` URL as a remote one (``io/store``), ahead of the
+extension registry.
 """
 
 from __future__ import annotations
@@ -18,6 +20,32 @@ def register(extension: str, opener) -> None:
 
 
 def open(path: str, n_atoms: int | None = None):
+    if isinstance(path, str) and \
+            path.startswith(("http://", "https://")):
+        # a remote chunk-store URL opens wherever a trajectory path is
+        # accepted, exactly like the store-directory branch below:
+        # "http://host:port/stores/NAME?mirror=..." and every read
+        # rides the hardened HTTP boundary (io/store/remote.py)
+        from mdanalysis_mpi_tpu_torch.io.store.remote import (
+            open_remote_store)
+
+        return open_remote_store(path, n_atoms=n_atoms)
+    if os.path.isdir(path):
+        # an ingested block store opens wherever a trajectory path is
+        # accepted (Universe(top, store_dir)), so "prefer the store" is
+        # just a path swap for every caller.  Opened directly (no
+        # pre-sniff: that would parse the O(chunks) manifest twice); a
+        # CORRUPT manifest surfaces as its typed StoreCorruptError.
+        from mdanalysis_mpi_tpu_torch.io.store import StoreReader
+
+        try:
+            return StoreReader(path, n_atoms=n_atoms)
+        except FileNotFoundError as exc:
+            raise ValueError(
+                f"{path!r} is a directory but not an ingested block "
+                f"store (no valid manifest.json); ingest it first with "
+                f"mdanalysis_mpi_tpu_torch.io.store.ingest(trajectory, "
+                f"store_dir)") from exc
     ext = os.path.splitext(path)[1].lower().lstrip(".")
     if not ext:
         # extensionless conventions (DL_POLY's HISTORY): the basename

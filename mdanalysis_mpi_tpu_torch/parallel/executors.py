@@ -196,14 +196,18 @@ def _cat_partials(parts):
 
 def _run_batches(analysis, reader, frames, bs, call, sel_idx, device,
                  cache: "DeviceBlockCache | None" = None, quantize=None,
-                 layout: str = "interleaved"):
+                 layout: str = "interleaved", engine: str = "generic"):
     """Shared batch loop: stage on the host → copy to the device → run
     the batch function → fold the partials on the device.
 
     The host staging of block i+1 runs on a helper thread while block i
     is consumed.  Partials never leave the device: results are folded
     with the analysis' ``_device_fold_fn`` (reductions) or concatenated
-    along the frame axis at the end (per-frame series)."""
+    along the frame axis at the end (per-frame series).  With
+    ``engine='fused'`` every consumed block is counted in
+    ``mdtpu_fused_blocks_total``."""
+    from mdanalysis_mpi_tpu_torch import obs
+
     fold = analysis._device_fold_fn
     total = None
     parts = []
@@ -294,6 +298,8 @@ def _run_batches(analysis, reader, frames, bs, call, sel_idx, device,
             if bi + 1 < len(bounds):
                 fut = pool.submit(prepare, bi + 1)
             out = call(*staged)
+            if engine == "fused":
+                obs.METRICS.inc("mdtpu_fused_blocks_total")
             if fold is None:
                 parts.append(out)
             else:
@@ -343,17 +349,18 @@ class TorchExecutor:
         self.transfer_dtype = transfer_dtype
 
     def _setup(self, analysis):
-        """Batch function, params, staged selection, quantize mode and
-        staging layout: the fused quantized-native function when the
-        analysis registers one (its ``staging_layout`` says whether the
-        blocks stage as planar ``(3, B, S)`` planes), else the analysis'
-        batch function behind the dequant or delta wrapper."""
+        """Batch function, params, staged selection, quantize mode,
+        staging layout and engine label: the fused quantized-native
+        function when the analysis registers one (its ``staging_layout``
+        says whether the blocks stage as planar ``(3, B, S)`` planes;
+        engine ``'fused'``), else the analysis' batch function behind
+        the dequant or delta wrapper (engine ``'generic'``)."""
         quantize = _quant_mode(self.transfer_dtype)
         qn = _quantized_native(analysis, self.transfer_dtype)
         if qn is not None:
             fn, params, sel_idx = qn
             return (fn, params, sel_idx, quantize,
-                    getattr(fn, "staging_layout", "interleaved"))
+                    getattr(fn, "staging_layout", "interleaved"), "fused")
         base_fn = analysis._batch_fn()
         params = analysis._batch_params()
         if self.transfer_dtype == "delta":
@@ -362,16 +369,18 @@ class TorchExecutor:
             fn, params = _dequant_wrapper(base_fn), (None, params)
         else:
             fn = base_fn
-        return fn, params, analysis._batch_select(), quantize, "interleaved"
+        return (fn, params, analysis._batch_select(), quantize,
+                "interleaved", "generic")
 
     def execute(self, analysis, reader, frames, batch_size=None):
         bs = batch_size or self.batch_size
-        fn, params, sel_idx, quantize, layout = self._setup(analysis)
+        fn, params, sel_idx, quantize, layout, engine = self._setup(analysis)
         params = _tree_to(params, self.device)
         return _run_batches(
             analysis, reader, list(frames), bs,
             lambda *staged: fn(params, *staged), sel_idx, self.device,
-            cache=self.block_cache, quantize=quantize, layout=layout)
+            cache=self.block_cache, quantize=quantize, layout=layout,
+            engine=engine)
 
 
 _EXECUTORS = {"serial": SerialExecutor, "torch": TorchExecutor}

@@ -291,6 +291,12 @@ def fire(site: str, frame=None, frames=None, array=None):
         if spec.times is not None and spec.fired >= spec.times:
             continue
         spec.fired += 1
+        # observability mirror: an injected fault is a trace instant +
+        # counter, exactly like a real incident would be
+        from mdanalysis_mpi_tpu_torch.obs import METRICS, span_event
+
+        span_event("fault_injected", site=site, kind=spec.kind)
+        METRICS.inc("mdtpu_faults_injected_total", site=site)
         if spec.kind == "raise":
             raise spec.exc(
                 f"injected fault at site {site!r} "

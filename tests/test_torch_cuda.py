@@ -347,3 +347,33 @@ def test_cuda_rmsd_and_aligntraj_match_cpu(dtype, tmp_path):
                          filename=path).run(device=dev, batch_size=16)
     back = streamed.results.universe.trajectory.read_block(0, 37)[0]
     np.testing.assert_array_equal(back, got)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_rmsf_from_an_int16_store_matches_cpu(tmp_path):
+    """AlignedRMSF's fused engine from a small int16 block store: on the
+    card the kernel runs in both passes on store-staged planar blocks
+    (no staged block decodes host float32: the reader's f32 cache holds
+    at most chunk 0, the reference frame), within 5e-4 Å of the CPU run
+    of the kernel's plain version over the same store."""
+    from mdanalysis_mpi_tpu_torch import Universe
+    from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
+    from mdanalysis_mpi_tpu_torch.io.store import ingest
+    from mdanalysis_mpi_tpu_torch.testing import make_protein_universe
+
+    dev = _card()
+    u = make_protein_universe(n_residues=60, n_frames=70, noise=0.3, seed=9)
+    store = str(tmp_path / "s16")
+    ingest(u.trajectory, store, chunk_frames=32, quant="int16")
+    run = dict(batch_size=32, transfer_dtype="int16")
+    card_u = Universe(u.topology, store)
+    n0 = fp.planar_sums.launches
+    card = AlignedRMSF(card_u, select="name CA", engine="fused").run(
+        backend="torch", device=dev, **run)
+    assert fp.planar_sums.launches == n0 + 6      # 3 blocks, 2 passes
+    assert set(card_u.trajectory._f32) <= {0}
+    cpu = AlignedRMSF(Universe(u.topology, store), select="name CA",
+                      engine="fused").run(backend="torch", device="cpu",
+                                          **run)
+    np.testing.assert_allclose(card.results.rmsf, cpu.results.rmsf,
+                               atol=5e-4)

@@ -201,11 +201,16 @@ def test_wrapper_refuses_other_devices():
 
 def test_planar_repack_matches_and_counts():
     q = np.arange(24, dtype=np.int16).reshape(2, 4, 3)
-    from mdanalysis_mpi_tpu_torch.io import base
+    from mdanalysis_mpi_tpu_torch.obs import METRICS
 
-    n0 = base.PLANAR_REPACKS
+    def repacks():
+        return sum(METRICS.snapshot().get(
+            "mdtpu_fused_planar_repacks_total",
+            {"values": {}})["values"].values())
+
+    n0 = repacks()
     p = planar_repack(q)
-    assert base.PLANAR_REPACKS == n0 + 1
+    assert repacks() == n0 + 1
     assert p.flags["C_CONTIGUOUS"]
     np.testing.assert_array_equal(p, np.asarray(jax_planar_repack(q)))
 

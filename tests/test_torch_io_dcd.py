@@ -198,6 +198,21 @@ def test_atomgroup_write_pdb_and_psf_like_jax(tmp_path):
                                atol=1e-3)
 
 
+def test_gro_byte_identical_and_cross_parse(tmp_path):
+    """``AtomGroup.write`` of a GRO: the same bytes from both packages,
+    title line included, and the port reads its file back."""
+    kw = dict(n_residues=5, n_frames=2, seed=1)
+    u, ju = make_protein_universe(**kw), jax_make_protein_universe(**kw)
+    p, jp = str(tmp_path / "x.gro"), str(tmp_path / "j.gro")
+    u.atoms.write(p)
+    ju.atoms.write(jp)
+    assert _bytes(p) == _bytes(jp)
+    back = Universe(p)
+    assert back.atoms.n_atoms == u.atoms.n_atoms
+    np.testing.assert_allclose(back.atoms.positions, u.atoms.positions,
+                               atol=5e-3)
+
+
 # ---------------- TrajectoryWriter ----------------
 
 @pytest.mark.parametrize("ext,atol", [("xtc", 2e-2), ("dcd", 1e-5)])

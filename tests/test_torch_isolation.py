@@ -112,6 +112,26 @@ ct = Contacts(up, select=("name CA", "name CB"),
 assert ct.results.timeseries.shape == (24, 2)
 ad = AtomicDistances(up.select_atoms("name CA"), cb).run(device="cpu")
 assert ad.results.distances.shape == (24, 8)
+# the store slice: ingest the DCD into an int16 block store, open it
+# as a Universe, run the fused engine from it, and load every module of
+# the store, obs, utils and breaker packages
+import importlib, pkgutil
+from mdanalysis_mpi_tpu_torch import obs, utils
+from mdanalysis_mpi_tpu_torch.io import store
+from mdanalysis_mpi_tpu_torch.reliability import breaker
+for pkg in (obs, utils, store):
+    for m in pkgutil.iter_modules(pkg.__path__):
+        importlib.import_module(pkg.__name__ + "." + m.name)
+store_dir = os.path.join(tmp, "p.store")
+summary = store.ingest(os.path.join(tmp, "p.dcd"), store_dir,
+                       chunk_frames=8, quant="int16")
+assert summary["n_chunks"] == 2
+us = Universe(u.topology, store_dir)
+assert isinstance(us.trajectory, store.StoreReader)
+rs = AlignedRMSF(us, select="name CA", engine="fused").run(
+    backend="torch", device="cpu", batch_size=8, transfer_dtype="int16")
+assert np.isfinite(rs.results.rmsf).all() and set(us.trajectory._f32) <= {0}
+assert obs.METRICS.snapshot()["mdtpu_fused_blocks_total"]["values"]
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "mdanalysis_mpi_tpu")
              or m.startswith(("jax.", "jaxlib.", "mdanalysis_mpi_tpu.")))
