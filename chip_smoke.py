@@ -110,6 +110,32 @@ prints no ok line):
    read, decode with its CRC checks, gather and planar repack, and
    pinned copy to the card.
 
+9. Streaming and several devices (run after phase 6, on phase 4's
+   system). (a) Phase 4's main path (fused int16, B = 512 a shard) on
+   ``MeshExecutor(devices=None)`` (every visible card) and on
+   ``MeshExecutor(devices=['cuda:0'] * 2)`` (a global batch of 1,024
+   frames cut into two shards): the fused kernel must launch on every
+   shard of every global batch in both passes (printed by device), the
+   RMSF within 1e-5 Å (one device) and 5e-4 Å (two shards) of phase 4's
+   ``TorchExecutor`` run, and the two-shard run over 32 frames within
+   1e-3 Å of the serial float64 oracle on the int16 wire coordinates.
+   (b) Two processes (this script with ``--rank``) join a gloo group
+   over ``torch.distributed`` (NCCL refuses two ranks on one GPU), each
+   stages its half of every 1,024-frame global batch of the heavy atoms
+   (saved to a temporary ``.npy``) and runs it through the fused kernel
+   on cuda:0; the moments merge by ``all_reduce``. Both ranks must hold
+   the same RMSF, within 1e-3 Å of leg (a), with 4 launches each. Then
+   one NCCL ``all_reduce`` of leg (a)'s moments at world size 1 must
+   equal the merge without the group. (c) ``InterRDF(engine='ring')``
+   over two shards of cuda:0, 8,192 waters × 16 frames (phase 5's
+   density), against ``engine='xla'`` on the card: counts and g(r)
+   within 1e-5 relative. (d) ``run_streaming`` of the fused int16
+   AlignedRMSF on a follow store fed by a ``LiveIngest`` thread: 1,024
+   of the heavy-atom frames in 256-frame chunks; the snapshots must be
+   monotone up to 1,024 frames and the final RMSF within 1e-5 Å of the
+   closed-file run over the sealed store. Prints each leg's wall and
+   frames/s; the phase's fused launches join the kernel table's count.
+
 Phase 3 also holds the pair-histogram kernel (``ops/fused_distances.
 pair_histogram``, ``csrc/pair_histogram.cu``) against
 ``pair_histogram_plain`` on the card: the main shape (the first block of
@@ -202,6 +228,16 @@ ALIGN_FRAMES = 256
 # temporary directory.
 STORE_BOX = np.array([120.0, 120.0, 120.0, 90.0, 90.0, 90.0])
 STORE_DISK_BYTES = 3_000_000_000
+# Phase 9: the mesh executor, two ranks, the ring RDF and streaming.
+# The ring runs a quarter of phase 5's box (8,192 waters at the same
+# density: 99.3 / 4^(1/3) Å); streaming ingests 1,024 of phase 4's
+# frames (the heavy atoms) in 256-frame chunks.
+RING_WATERS = 8192
+RING_BOX = 62.56
+RING_FRAMES = 16
+STREAM_FRAMES = 1024
+STREAM_CHUNK = 256
+RANK_TIMEOUT_S = 240
 PH_NAME = "pair_histogram"
 PH_SOURCE = "mdanalysis_mpi_tpu_torch/csrc/pair_histogram.cu"
 PH_REPLACES = "mdanalysis_mpi_tpu/ops/pallas_distances.py:164"
@@ -902,7 +938,7 @@ def phase_end_to_end(card):
         check(err_g <= tol_generic,
               f"{wire}: fused vs generic differ by {err_g:.3g}")
         check(err_o <= 5e-2, f"{wire}: fused vs oracle differ by {err_o:.3g}")
-    return runs["launches"], u
+    return runs["launches"], u, rmsf
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1450,13 +1486,344 @@ def phase_store(card, u):
     return lx + ls
 
 
-def main():
+# ---------------------------------------------------------------- phase 9
+
+def mesh_run(u, devices, **kw):
+    """One fused int16 AlignedRMSF on a MeshExecutor over ``devices``
+    (B = 512 a shard), with the kernel's count set to 0 just before and
+    read just after → (analysis, wall s, launches)."""
+    import torch
+
+    from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
+    from mdanalysis_mpi_tpu_torch.ops import fused_planar as fp
+    from mdanalysis_mpi_tpu_torch.parallel.executors import MeshExecutor
+
+    u.trajectory.__dict__.pop("_quant_max_hints", None)
+    mesh = MeshExecutor(batch_size=E2E_BATCH, devices=devices,
+                        transfer_dtype="int16")
+    torch.cuda.synchronize()
+    fp.planar_sums.launches = 0
+    t0 = time.perf_counter()
+    r = AlignedRMSF(u, select="heavy", engine="fused").run(backend=mesh,
+                                                           **kw)
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0, fp.planar_sums.launches, mesh
+
+
+def per_device(mesh, launches):
+    """The launches of a run by device: each shard launches the same
+    number of times (once a global batch and pass), on its device."""
+    devs = [str(d) for d in mesh.devices]
+    each = launches // len(devs)
+    return {d: each * devs.count(d) for d in dict.fromkeys(devs)}
+
+
+def mesh_leg(card, u, rmsf_single):
+    """Leg (a): phase 4's main path on a MeshExecutor over every visible
+    card and over two shards of card 0 → (launches, the 2-shard RMSF,
+    its moment partials)."""
+    import torch
+
+    from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
+    from mdanalysis_mpi_tpu_torch.ops.fused_rmsf import pad_selection
+
+    n_frames, bs = E2E_FRAMES, E2E_BATCH
+    idx = u.select_atoms("heavy").indices
+    n_cards = torch.cuda.device_count()
+    total = 0
+    for devices, tol, label in (
+            (None, 1e-5, f"every visible card ({n_cards})"),
+            (["cuda:0"] * 2, 5e-4, "two shards of cuda:0")):
+        r, wall, launches, mesh = mesh_run(u, devices)
+        n_dev = len(mesh.devices)
+        n_batches = -(-n_frames // (bs * n_dev))
+        check(launches == 2 * n_batches * n_dev,
+              f"mesh over {label}: {launches} kernel launches, expected "
+              f"{2 * n_batches * n_dev} (2 passes x {n_batches} global "
+              f"batches x {n_dev} shards)")
+        rmsf = r.results.rmsf
+        err = np.abs(rmsf - rmsf_single).max()
+        print(f"mesh {label}: AlignedRMSF(engine='fused') int16 B={bs} a "
+              f"shard: wall {wall:.3f} s, {n_frames / wall:.1f} frames/s "
+              f"(both passes), fused launches {launches}, by device "
+              f"{per_device(mesh, launches)}; vs TorchExecutor max "
+              f"|d rmsf| = {err:.3g} "
+              f"(limit {tol:g}) on {card}")
+        check(err <= tol, f"mesh over {label} vs TorchExecutor {err:.3g}")
+        total += launches
+        if devices is not None:
+            rmsf2, moments2 = rmsf, r._last_total
+    # the serial float64 oracle on the coordinates the int16 wire
+    # delivers (the first 32 frames, staged as the run stages them)
+    n32 = 32
+    sel_p = pad_selection(idx)[0]
+    u.trajectory.__dict__.pop("_quant_max_hints", None)
+    q, _, inv = u.trajectory.stage_block(0, n32, sel_p, "int16")
+    u_wire = heavy_universe(q[:, :len(idx)].astype(np.float32)
+                            * np.float32(inv))
+    oracle = AlignedRMSF(u_wire, select="heavy").run(backend="serial")
+    r32, _, launches, _ = mesh_run(u, ["cuda:0"] * 2, stop=n32)
+    total += launches
+    err = np.abs(r32.results.rmsf - oracle.results.rmsf).max()
+    print(f"mesh two shards, {n32} frames, vs the serial f64 oracle on the "
+          f"int16 wire coordinates: max |d rmsf| = {err:.3g} (limit 1e-3)")
+    check(err <= 1e-3, f"mesh vs serial oracle on the wire {err:.3g}")
+    return total, rmsf2, moments2
+
+
+def rank_child(rank, port, frames_path, out_path):
+    """One rank of leg (b): join a 2-rank gloo group, run the fused int16
+    AlignedRMSF over the heavy-atom frames on a MeshExecutor over cuda:0
+    (this rank stages its half of every 1,024-frame global batch), save
+    the merged RMSF and print its wall and kernel launches."""
+    import torch
+    import torch.distributed as dist
+
+    from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
+    from mdanalysis_mpi_tpu_torch.ops import fused_planar as fp
+    from mdanalysis_mpi_tpu_torch.parallel.distributed import (initialize,
+                                                               world)
+    from mdanalysis_mpi_tpu_torch.parallel.executors import MeshExecutor
+
+    initialize(f"127.0.0.1:{port}", 2, rank, device="cuda",
+               backend="gloo", timeout_s=RANK_TIMEOUT_S)
+    check(world() == (rank, 2), f"rank {rank}: world {world()}")
+    u = heavy_universe(np.load(frames_path))
+    mesh = MeshExecutor(batch_size=E2E_BATCH, devices=["cuda:0"],
+                        transfer_dtype="int16")
+    torch.cuda.synchronize()
+    fp.planar_sums.launches = 0
+    t0 = time.perf_counter()
+    r = AlignedRMSF(u, select="heavy", engine="fused").run(backend=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    np.save(out_path, r.results.rmsf)
+    print(json.dumps({"rank": rank, "wall": wall,
+                      "launches": fp.planar_sums.launches,
+                      "backend": str(dist.get_backend())}))
+    dist.destroy_process_group()
+
+
+def two_rank_leg(card, heavy, rmsf_mesh, tmp):
+    """Leg (b): two processes over torch.distributed (gloo: NCCL refuses
+    two ranks on one GPU) on the one card, merged by all_reduce →
+    launches of both ranks."""
+    from mdanalysis_mpi_tpu_torch.testing import handoff_port
+
+    frames_path = os.path.join(tmp, "heavy.npy")
+    np.save(frames_path, heavy)
+    holder, port = handoff_port()
+    holder.close()
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--rank",
+         str(rank), str(port), frames_path,
+         os.path.join(tmp, f"rank{rank}.npy")],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=RANK_TIMEOUT_S)
+            outs.append(out)
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise SmokeFailure(f"two-rank leg: a rank ran over "
+                           f"{RANK_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0,
+              f"two-rank leg: rank {rank} exited {p.returncode}:\n"
+              f"{out[-3000:]}")
+    reports = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    launches = sum(r["launches"] for r in reports)
+    rmsfs = [np.load(os.path.join(tmp, f"rank{rank}.npy"))
+             for rank in range(2)]
+    check(np.array_equal(rmsfs[0], rmsfs[1]),
+          "two-rank leg: the ranks hold different merged RMSF")
+    n_batches = -(-heavy.shape[0] // (2 * E2E_BATCH))
+    check(all(r["launches"] == 2 * n_batches for r in reports),
+          f"two-rank leg: launches per rank {[r['launches'] for r in reports]}"
+          f", expected {2 * n_batches} each")
+    err = np.abs(rmsfs[0] - rmsf_mesh).max()
+    print(f"two ranks on one card ({reports[0]['backend']}, "
+          f"all_reduce of the moments): run walls "
+          + " / ".join(f"{r['wall']:.3f}" for r in reports)
+          + f" s ({heavy.shape[0] / max(r['wall'] for r in reports):.1f} "
+          f"frames/s), {wall:.1f} s with process start, fused launches "
+          + " + ".join(str(r["launches"]) for r in reports)
+          + f"; vs the mesh leg max |d rmsf| = {err:.3g} (limit 1e-3) "
+          f"on {card}")
+    check(err <= 1e-3, f"two-rank leg vs mesh leg {err:.3g}")
+    return launches
+
+
+def nccl_leg(total):
+    """One NCCL all_reduce at world size 1 (the moment merge with the
+    process group), so the NCCL path is built and run on the card."""
+    import torch
+    import torch.distributed as dist
+
+    from mdanalysis_mpi_tpu_torch.ops.moments import psum_moments
+    from mdanalysis_mpi_tpu_torch.parallel.distributed import Collectives
+    from mdanalysis_mpi_tpu_torch.testing import handoff_port
+
+    holder, port = handoff_port()
+    holder.close()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        comm = Collectives()
+        got = psum_moments([total], comm)
+        want = psum_moments([total])
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        print(f"nccl all_reduce at world size 1: backend {comm.backend}, "
+              f"moments on {got[1].device}, equal to the merge without "
+              f"the group: {same}")
+        check(comm.backend == "nccl" and got[1].is_cuda and same,
+              "nccl all_reduce of the moments failed")
+    finally:
+        dist.destroy_process_group()
+
+
+def ring_leg(card):
+    """Leg (c): InterRDF(engine='ring') over two shards of cuda:0 against
+    engine='xla' on the card."""
+    import torch
+
+    from mdanalysis_mpi_tpu_torch.analysis import InterRDF
+    from mdanalysis_mpi_tpu_torch.parallel.executors import MeshExecutor
+
+    u, ow = make_water(RING_WATERS, RING_BOX, RING_FRAMES)
+    out = {}
+    for engine, backend in (
+            ("ring", dict(backend=MeshExecutor(
+                batch_size=RING_FRAMES, devices=["cuda:0"] * 2))),
+            ("xla", dict(backend="torch", device="cuda",
+                         batch_size=RING_FRAMES))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = InterRDF(ow, ow, engine=engine).run(**backend)
+        count, rdf = r.results.count, r.results.rdf
+        out[engine] = (count, rdf, time.perf_counter() - t0)
+    (rc, rr, wr), (xc, xr, wx) = out["ring"], out["xla"]
+    err = max(float(np.max(np.abs(rc - xc) / np.maximum(np.abs(xc), 1e-30))),
+              float(np.max(np.abs(rr - xr) / np.maximum(np.abs(xr), 1e-30))))
+    pairs = RING_FRAMES * len(ow) * (len(ow) - 1)
+    print(f"ring RDF {len(ow)} waters x {RING_FRAMES} frames over two "
+          f"shards of cuda:0: wall {wr:.3f} s ({RING_FRAMES / wr:.1f} "
+          f"frames/s, {pairs / wr:.3g} pairs/s); engine='xla' {wx:.3f} s; "
+          f"largest relative difference of counts and g(r) {err:.3g} "
+          f"(limit 1e-5) on {card}")
+    check(np.allclose(rc, xc, rtol=1e-5, atol=0)
+          and np.allclose(rr, xr, rtol=1e-5, atol=0),
+          f"ring vs xla RDF differ by {err:.3g}")
+
+
+def stream_leg(card, heavy, tmp):
+    """Leg (d): run_streaming of the fused int16 AlignedRMSF on a follow
+    store fed by a LiveIngest thread → launches."""
+    import threading
+
+    import torch
+
+    from mdanalysis_mpi_tpu_torch import Universe
+    from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
+    from mdanalysis_mpi_tpu_torch.io.store import LiveIngest, StoreReader
+    from mdanalysis_mpi_tpu_torch.ops import fused_planar as fp
+
+    frames = heavy[:STREAM_FRAMES]
+    top = heavy_universe(frames[:1]).topology
+    store = os.path.join(tmp, "live.store")
+    live = LiveIngest(out=store, n_atoms=frames.shape[1],
+                      chunk_frames=STREAM_CHUNK)
+    errors = []
+    t_ingest = {}
+
+    def writer():
+        try:
+            t0 = time.perf_counter()
+            for lo in range(0, len(frames), STREAM_CHUNK):
+                for f in frames[lo:lo + STREAM_CHUNK]:
+                    live.append(f)
+            live.seal()
+            t_ingest["s"] = time.perf_counter() - t0
+        except Exception as exc:          # surfaced after the join
+            errors.append(exc)
+
+    run_kw = dict(backend="torch", device="cuda", batch_size=STREAM_CHUNK,
+                  transfer_dtype="int16")
+    thread = threading.Thread(target=writer)
+    torch.cuda.synchronize()
+    fp.planar_sums.launches = 0
+    t0 = time.perf_counter()
+    thread.start()
+    try:
+        r = AlignedRMSF(Universe(top, StoreReader(store, follow=True)),
+                        select="heavy", engine="fused").run_streaming(
+            window=STREAM_CHUNK, poll_interval_s=0.01,
+            stall_timeout_s=120.0, **run_kw)
+    finally:
+        thread.join(timeout=120)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fp.planar_sums.launches
+    check(not thread.is_alive() and not errors,
+          f"stream leg: the writer failed: {errors}")
+    seq = [s["frames"] for s in r.results.stream_snapshots]
+    check(seq == sorted(set(seq)) and seq[-1] == len(frames),
+          f"stream leg: snapshots not monotone to {len(frames)}: {seq}")
+    closed = AlignedRMSF(Universe(top, StoreReader(store)), select="heavy",
+                         engine="fused").run(**run_kw)
+    err = np.abs(r.results.rmsf - closed.results.rmsf).max()
+    print(f"stream AlignedRMSF(engine='fused') int16 from a follow store "
+          f"({frames.shape[1]} atoms, {len(frames)} frames in "
+          f"{STREAM_CHUNK}-frame chunks, ingest {t_ingest['s']:.3f} s): "
+          f"wall {wall:.3f} s ({len(frames) / wall:.1f} frames/s of feed), "
+          f"snapshots at {seq}, fused launches {launches}; final vs the "
+          f"closed-file run max |d rmsf| = {err:.3g} (limit 1e-5) on {card}")
+    check(err <= 1e-5, f"stream final vs closed-file run {err:.3g}")
+    return launches
+
+
+def phase_multi(card, u, rmsf_single):
+    """Phase 9: the mesh executor on the card, two ranks on the one card,
+    the ring RDF and streaming → the fused kernel's launches."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    launches, rmsf_mesh, moments = mesh_leg(card, u, rmsf_single)
+    idx = u.select_atoms("heavy").indices
+    heavy = np.ascontiguousarray(
+        u.trajectory.read_block(0, E2E_FRAMES, sel=idx)[0])
+    tmp = tempfile.mkdtemp(prefix="mdtpu_multi_")
+    try:
+        launches += two_rank_leg(card, heavy, rmsf_mesh, tmp)
+        nccl_leg(moments)
+        ring_leg(card)
+        launches += stream_leg(card, heavy, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, time.perf_counter() - t_phase
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
     if not os.path.isdir(os.path.join(HERE, "mdanalysis_mpi_tpu_torch")):
         print("FAIL: chip_smoke.py must run from a checkout of the "
               "repository (mdanalysis_mpi_tpu_torch/ not found)",
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if argv[:1] == ["--rank"]:
+        # a rank of phase 9's two-rank leg, started by phase 9 itself
+        rank_child(int(argv[1]), int(argv[2]), argv[3], argv[4])
+        return 0
     try:
         card = phase_device()
         phase_build()
@@ -1467,11 +1834,15 @@ def main():
         print(f"water system: {u.atoms.n_atoms} atoms x {RDF_FRAMES} "
               f"frames, built in {time.perf_counter() - t0:.1f} s")
         ph_rows, ph_worst = phase_pair_histogram(card_name, ow)
-        launches, u_e2e = phase_end_to_end(card)
+        launches, u_e2e, rmsf_e2e = phase_end_to_end(card)
         launches += phase_store(card, u_e2e)
         ph_launches = phase_rdf(card, u, ow, ph_rows["main"])
         del u, ow
         phase_rmsd(card, u_e2e)
+        multi_launches, t_multi = phase_multi(card, u_e2e, rmsf_e2e)
+        launches += multi_launches
+        print(f"multi-device phase: {t_multi:.1f} s, fused launches "
+              f"{multi_launches}")
         del u_e2e
         phase_configs(card)
     except SmokeFailure as exc:

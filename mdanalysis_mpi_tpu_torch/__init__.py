@@ -15,8 +15,10 @@ imports neither it nor JAX.  Layers, as in the JAX package:
   PyTorch code, the serial float64 NumPy oracle (:mod:`.ops.host`), and the
   fused aligned-moments path whose hand-written CUDA kernel lives in
   ``csrc/fused_rmsf.cu`` (:mod:`.ops.fused_planar`).
-- :mod:`.parallel` — the serial oracle executor and the single-device
-  torch executor with its device block cache.
+- :mod:`.parallel` — the serial oracle executor, the single-device
+  torch executor with its device block cache, the multi-device
+  ``MeshExecutor`` (lists of devices and ``torch.distributed`` ranks)
+  and the mpi4py ``MPIExecutor``.
 - :mod:`.analysis` — ``AverageStructure``, ``AlignTraj``, ``RMSF``,
   ``RMSD``, ``AlignedRMSF``, the RDF and distance analyses,
   ``Contacts``, ``NucPairDist``/``WatsonCrickDist`` and

@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from mdanalysis_mpi_tpu_torch.analysis.base import (AnalysisBase, Deferred,
-                                                    to_numpy, tree_add)
+                                                    to_numpy, tree_add,
+                                                    tree_psum)
 from mdanalysis_mpi_tpu_torch.core.universe import Universe
 from mdanalysis_mpi_tpu_torch.ops import host
 from mdanalysis_mpi_tpu_torch.parallel.partition import iter_batches, pad_batch
@@ -152,6 +153,7 @@ class AverageStructure(AnalysisBase):
         return (torch.as_tensor(self._sel_idx),) + params
 
     _device_fold_fn = staticmethod(tree_add)
+    _device_combine = staticmethod(tree_psum)
 
     def _identity_partials(self):
         return (0.0, np.zeros_like(self._acc))

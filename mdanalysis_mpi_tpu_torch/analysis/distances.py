@@ -9,7 +9,7 @@ import torch
 
 from mdanalysis_mpi_tpu_torch.analysis.base import (AnalysisBase,
                                                     deferred_group, to_numpy,
-                                                    tree_add)
+                                                    tree_add, tree_psum)
 from mdanalysis_mpi_tpu_torch.core.groups import AtomGroup
 from mdanalysis_mpi_tpu_torch.ops import host
 
@@ -72,6 +72,7 @@ class ContactMap(AnalysisBase):
         return (np.float32(self._cutoff),)
 
     _device_fold_fn = staticmethod(tree_add)
+    _device_combine = staticmethod(tree_psum)
 
     def _identity_partials(self):
         s = len(self._idx)

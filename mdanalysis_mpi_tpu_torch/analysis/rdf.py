@@ -15,8 +15,9 @@ Engines keep the JAX package's names, so user code ports unchanged:
 (:mod:`mdanalysis_mpi_tpu_torch.ops.fused_distances`; its plain torch
 version on the CPU), ``'xla'`` the generic torch-op engine
 (:mod:`mdanalysis_mpi_tpu_torch.ops.distances`), ``'auto'`` picks
-between them, and ``'ring'`` (the atom-sharded multi-device engine) is
-not ported yet.
+between them, and ``'ring'`` is the atom-sharded multi-device engine
+(:mod:`mdanalysis_mpi_tpu_torch.ops.ring`; ``backend='mesh'`` only,
+float32 staging).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 from mdanalysis_mpi_tpu_torch.analysis.base import (AnalysisBase,
                                                     _materialize,
                                                     deferred_group, to_numpy,
-                                                    tree_add)
+                                                    tree_add, tree_psum)
 from mdanalysis_mpi_tpu_torch.core.groups import AtomGroup
 from mdanalysis_mpi_tpu_torch.ops import host
 from mdanalysis_mpi_tpu_torch.ops._boxmat import batch_box_volumes
@@ -70,6 +71,31 @@ def _rdf_kernel(exclude_self: bool, tile: int, engine: str,
     return kernel
 
 
+# Ring-engine atom padding: the union atom array is padded to a multiple
+# of this so it divides evenly across any power-of-two device count
+# (padded entries carry weight 0 and vanish).
+_RING_PAD = 512
+
+
+@functools.lru_cache(maxsize=None)
+def _rdf_ring_kernel(exclude_self: bool, tile: int):
+    """Atom-sharded ring engine (ops.ring): each device holds a block of
+    the staged union; group membership travels as weights; the B side
+    rotates around the devices.  Ring convention: every argument is a
+    list with one entry per local device, plus the process group's
+    collectives (or None); returns one partials tuple per device."""
+    def kernel(params, batch, boxes, mask, comm):
+        from mdanalysis_mpi_tpu_torch.ops.ring import ring_rdf_batch
+
+        w_a, w_b, edges = zip(*params)
+        return ring_rdf_batch(list(batch), list(w_a), list(w_b),
+                              list(boxes), list(mask), list(edges),
+                              exclude_self=exclude_self, tile=tile,
+                              comm=comm)
+
+    return kernel
+
+
 class InterRDF(AnalysisBase):
     """Radial distribution function g(r) between two groups."""
 
@@ -87,11 +113,6 @@ class InterRDF(AnalysisBase):
             raise ValueError(
                 f"engine must be 'auto', 'pallas', 'xla' or 'ring', "
                 f"got {engine!r}")
-        if engine == "ring":
-            raise NotImplementedError(
-                "engine='ring' (the atom-sharded multi-device RDF) is not "
-                "ported yet: it comes with multi-GPU execution (ROADMAP "
-                "A7); use 'auto', 'pallas' or 'xla'")
         if exclusion_block is not None:
             p, q = (int(exclusion_block[0]), int(exclusion_block[1]))
             if p < 1 or q < 1:
@@ -102,7 +123,7 @@ class InterRDF(AnalysisBase):
                 raise ValueError(
                     f"exclusion_block {(p, q)} does not tile the groups "
                     f"({g1.n_atoms}, {g2.n_atoms} atoms)")
-            if engine == "pallas":
+            if engine in ("pallas", "ring"):
                 raise ValueError(
                     "exclusion_block is implemented on the 'xla' engine "
                     "(auto resolves there automatically)")
@@ -127,7 +148,19 @@ class InterRDF(AnalysisBase):
                                   self._nbins + 1)
         # union staging: both groups gathered once, local indices within
         union = np.union1d(self._g1.indices, self._g2.indices)
-        self._union = union
+        if self._engine == "ring":
+            # pad the union so it divides across any power-of-two device
+            # count; padded slots restage atom 0 with weight 0 (ops.ring)
+            pad = (-len(union)) % _RING_PAD
+            self._union = np.concatenate(
+                [union, np.zeros(pad, dtype=union.dtype)])
+            w_a = np.zeros(len(self._union), dtype=np.float32)
+            w_b = np.zeros(len(self._union), dtype=np.float32)
+            w_a[np.searchsorted(union, self._g1.indices)] = 1.0
+            w_b[np.searchsorted(union, self._g2.indices)] = 1.0
+            self._ring_weights = (w_a, w_b)
+        else:
+            self._union = union
         self._loc_a = np.searchsorted(union, self._g1.indices)
         self._loc_b = np.searchsorted(union, self._g2.indices)
         self._identical = (len(self._g1.indices) == len(self._g2.indices)
@@ -204,13 +237,31 @@ class InterRDF(AnalysisBase):
         return self._union
 
     def _batch_fn(self):
+        if self._resolve_engine() == "ring":
+            return _rdf_ring_kernel(self._identical, self._tile)
         return _rdf_kernel(self._identical, self._tile,
                            self._resolve_engine(), self._exclusion_block)
 
     def _batch_params(self):
+        if self._resolve_engine() == "ring":
+            w_a, w_b = self._ring_weights
+            return (w_a, w_b, self._edges.astype(np.float32))
         return (self._loc_a, self._loc_b, self._edges.astype(np.float32))
 
+    @property
+    def _mesh_only(self):
+        return self._engine == "ring"
+
+    def _batch_specs(self):
+        if self._resolve_engine() != "ring":
+            return None
+        # params (w_a, w_b, edges) cut along the union's atom axis but
+        # the edges; batch (B, N, 3) along its atom axis; boxes and
+        # mask whole on every device
+        return ((0, 0, None), 1, None, None)
+
     _device_fold_fn = staticmethod(tree_add)
+    _device_combine = staticmethod(tree_psum)
 
     def _identity_partials(self):
         return (np.zeros(self._nbins), 0.0, 0.0, 0.0)
@@ -439,6 +490,7 @@ class InterRDF_s(AnalysisBase):
         return (self._loc_a, self._loc_b, self._edges.astype(np.float32))
 
     _device_fold_fn = staticmethod(tree_add)
+    _device_combine = staticmethod(tree_psum)
 
     def _identity_partials(self):
         return (np.zeros(len(self._loc_a) * (self._nbins + 1)),

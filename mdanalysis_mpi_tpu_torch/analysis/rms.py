@@ -22,6 +22,7 @@ from mdanalysis_mpi_tpu_torch.analysis.base import AnalysisBase, to_numpy
 from mdanalysis_mpi_tpu_torch.core.groups import AtomGroup
 from mdanalysis_mpi_tpu_torch.ops import host
 from mdanalysis_mpi_tpu_torch.ops.moments import (merge_moments,
+                                                  psum_moments,
                                                   rmsf_from_moments)
 
 
@@ -101,6 +102,12 @@ def _rmsd_nofit_kernel(params, batch, boxes, mask):
     return (vals * mask, mask)
 
 
+def _psum_moments_partials(parts, comm=None):
+    """The mesh merge of per-device moment partials (law of total
+    variance, ``ops.moments.psum_moments``)."""
+    return psum_moments(parts, comm)
+
+
 def _real_frames(x, mask, n: int):
     """The rows of a per-frame series whose ``mask`` is set, in frame
     order.  On a tensor this reads nothing back from the device: a
@@ -166,6 +173,7 @@ class RMSF(AnalysisBase):
         return _moments_kernel
 
     _device_fold_fn = staticmethod(merge_moments)
+    _device_combine = staticmethod(_psum_moments_partials)
 
     def _identity_partials(self):
         z = np.zeros((len(self._idx), 3))
@@ -332,6 +340,7 @@ class RMSD(AnalysisBase):
 
     # no _device_fold_fn: the executor concatenates the per-batch
     # (vals, mask) series in frame order on the device
+    _device_combine = None
 
     def _identity_partials(self):
         if self._groupselections:
@@ -499,6 +508,7 @@ class _MomentsToReference(AnalysisBase):
                 _f32(self._ref_com))
 
     _device_fold_fn = staticmethod(merge_moments)
+    _device_combine = staticmethod(_psum_moments_partials)
 
     def _identity_partials(self):
         z = np.zeros((len(self._idx), 3))

@@ -11,10 +11,13 @@ the circuit breaker count on.
   exposition.  Its known-metric schema is the JAX package's.
 - :mod:`~mdanalysis_mpi_tpu_torch.obs.usage` — per-tenant usage metering
   (the store reader charges chunk reads here).
+- :mod:`~mdanalysis_mpi_tpu_torch.obs.report` — the per-run
+  ``RunReport`` that ``AnalysisBase.run_streaming`` attaches under
+  ``results.observability`` (phase totals from ``utils/timers``).
 
-The JAX package's run report, continuous profiler, alert rules,
-perf-regression sentinel and flight recorder wait for the run capture
-and serving layers that call them (ROADMAP A9, A10).
+The JAX package's continuous profiler, alert rules, perf-regression
+sentinel and flight recorder wait for the serving layers that call
+them (ROADMAP A10).
 
 Import layering: this package imports ONLY the standard library — the
 rest of the package imports it, never the reverse, so instrumentation
@@ -24,6 +27,9 @@ can thread anywhere without cycles.
 from mdanalysis_mpi_tpu_torch.obs import usage as usage
 from mdanalysis_mpi_tpu_torch.obs.metrics import (
     METRICS, MetricsRegistry, to_prometheus, unified_snapshot,
+)
+from mdanalysis_mpi_tpu_torch.obs.report import (
+    abandon_capture, finish_capture, start_capture,
 )
 from mdanalysis_mpi_tpu_torch.obs.spans import (
     context as trace_context,
@@ -37,9 +43,17 @@ from mdanalysis_mpi_tpu_torch.obs.spans import (
     trace_path,
 )
 
+# run-capture helpers under their obs.* names (run_streaming calls
+# obs.start_run_capture / obs.finish_run_capture, and
+# obs.abandon_run_capture when the run raises in between)
+start_run_capture = start_capture
+finish_run_capture = finish_capture
+abandon_run_capture = abandon_capture
+
 __all__ = [
     "METRICS", "MetricsRegistry", "to_prometheus", "unified_snapshot",
     "span", "span_event", "trace_context", "enable_tracing",
     "disable_tracing", "tracing_enabled", "export_trace", "trace_path",
-    "maybe_enable_from_env", "usage",
+    "maybe_enable_from_env", "usage", "start_run_capture",
+    "finish_run_capture", "abandon_run_capture",
 ]

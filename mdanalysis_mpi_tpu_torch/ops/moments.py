@@ -70,6 +70,47 @@ def reduce_moments(summaries):
     return acc
 
 
+def psum_moments(summaries, comm=None):
+    """K-way moment merge of per-device summaries (the JAX package's
+    ``psum_moments``, a merge across a mesh axis).
+
+    Law of total variance:
+    ``M2_tot = Σ_k M2_k + Σ_k T_k·(μ_k − μ_tot)²`` — three sums, no
+    pairwise fold; exact because the merge is associative and
+    commutative (it replaces the reference's pickled custom-op reduce,
+    RMSF.py:142-143).
+
+    Two forms:
+
+    - single controller: ``summaries`` is a list of ``(T, mean, M2)``
+      partials, one per device shard, each on its own device; the sums
+      run on the first summary's device;
+    - with ``comm`` (a :class:`~mdanalysis_mpi_tpu_torch.parallel.
+      distributed.Collectives`), each of the three sums is then
+      all-reduced (SUM) across the process group: ``T``, ``T·mean``,
+      then ``M2 + T·(mean − mean_tot)²``.
+    """
+    dev = summaries[0][1].device
+
+    def on(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    ts = [on(s[0]) for s in summaries]
+    means = [on(s[1]) for s in summaries]
+    t_tot = sum(ts[1:], ts[0])
+    s_tot = sum((t * m for t, m in zip(ts[1:], means[1:])),
+                ts[0] * means[0])
+    if comm is not None:
+        t_tot = comm.all_reduce(t_tot)
+        s_tot = comm.all_reduce(s_tot)
+    mean_tot = s_tot / torch.clamp(t_tot, min=1.0)
+    m2_tot = sum(on(s[2]) + t * (m - mean_tot) ** 2
+                 for s, t, m in zip(summaries, ts, means))
+    if comm is not None:
+        m2_tot = comm.all_reduce(m2_tot)
+    return t_tot, mean_tot, m2_tot
+
+
 def rmsf_from_moments(t, m2):
     """Finalize: RMSF_i = sqrt(Σ_xyz M2_i / T) (reference RMSF.py:146).
     A device ``m2`` stays on its device."""

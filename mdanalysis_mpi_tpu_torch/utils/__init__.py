@@ -1,8 +1,8 @@
 """Utilities: integrity (CRC framing, fingerprints, atomic writes,
-typed corruption errors) and structured logging.
+typed corruption errors), structured logging and the phase timers.
 
-The phase timers, configuration and the checkpoint and compile caches
-of the JAX package's ``utils`` come with ROADMAP A4 and A9.
+The configuration and the checkpoint and compile caches of the JAX
+package's ``utils`` come with ROADMAP A4 and A9.
 """
 
 from mdanalysis_mpi_tpu_torch.utils.log import get_logger, log_event

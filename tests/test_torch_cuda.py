@@ -377,3 +377,94 @@ def test_cuda_fused_rmsf_from_an_int16_store_matches_cpu(tmp_path):
                                           **run)
     np.testing.assert_allclose(card.results.rmsf, cpu.results.rmsf,
                                atol=5e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_two_shards_fused_int16_matches_torch_executor():
+    """MeshExecutor over ``["cuda:0"] * 2``: every shard of every global
+    batch launches the fused kernel in both passes (no demotion to the
+    generic form), and the RMSF is within 5e-4 Å of TorchExecutor's on
+    the same card (the shards quantize as one global batch, so the wire
+    is the single-device wire cut in two; the merge order differs)."""
+    from mdanalysis_mpi_tpu_torch import obs
+    from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
+    from mdanalysis_mpi_tpu_torch.parallel.executors import MeshExecutor
+    from mdanalysis_mpi_tpu_torch.testing import make_protein_universe
+
+    _card()
+    u = make_protein_universe(n_residues=60, n_frames=70, noise=0.3, seed=9)
+    n0 = fp.planar_sums.launches
+    mesh = AlignedRMSF(u, select="name CA", engine="fused").run(
+        backend=MeshExecutor(batch_size=16, devices=["cuda:0"] * 2,
+                             transfer_dtype="int16"))
+    # 70 frames in global batches of 32: 3 batches × 2 shards × 2 passes
+    assert fp.planar_sums.launches == n0 + 12
+    fallbacks = obs.METRICS.snapshot().get(
+        "mdtpu_fused_fallbacks_total", {}).get("values", {})
+    assert sum(fallbacks.values()) == 0
+    single = AlignedRMSF(u, select="name CA", engine="fused").run(
+        backend="torch", device="cuda", batch_size=32,
+        transfer_dtype="int16")
+    np.testing.assert_allclose(mesh.results.rmsf, single.results.rmsf,
+                               atol=5e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_ring_rdf_two_shards_matches_xla():
+    """The atom-sharded ring over ``["cuda:0"] * 2`` against the
+    frame-batched ``'xla'`` engine on the card (tests/test_ring.py's
+    rtol 1e-5)."""
+    from mdanalysis_mpi_tpu_torch.analysis import InterRDF
+    from mdanalysis_mpi_tpu_torch.parallel.executors import MeshExecutor
+    from mdanalysis_mpi_tpu_torch.testing import make_water_universe
+
+    _card()
+    u = make_water_universe(n_waters=300, n_frames=4, seed=1)
+    ow = u.select_atoms("name OW")
+    ring = InterRDF(ow, ow, nbins=40, range=(0.0, 8.0), engine="ring").run(
+        backend=MeshExecutor(batch_size=2, devices=["cuda:0"] * 2))
+    xla = InterRDF(ow, ow, nbins=40, range=(0.0, 8.0), engine="xla").run(
+        backend="torch", device="cuda", batch_size=2)
+    np.testing.assert_allclose(ring.results.count, xla.results.count,
+                               rtol=1e-5)
+    np.testing.assert_allclose(ring.results.rdf, xla.results.rdf, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_run_streaming_from_a_follow_store_matches_cpu(tmp_path):
+    """run_streaming of the fused AlignedRMSF and of RMSF from a small
+    follow store on the card: the same snapshot frame counts as on the
+    CPU, and the final results within 5e-4 Å (fused) and 1e-5 (RMSF) of
+    the CPU's."""
+    from mdanalysis_mpi_tpu_torch import Universe
+    from mdanalysis_mpi_tpu_torch.analysis import RMSF, AlignedRMSF
+    from mdanalysis_mpi_tpu_torch.io.store import LiveIngest, StoreReader
+    from mdanalysis_mpi_tpu_torch.testing import make_protein_universe
+
+    _card()
+    u = make_protein_universe(n_residues=60, n_frames=48, noise=0.3, seed=9)
+    store = str(tmp_path / "live")
+    live = LiveIngest(out=store, n_atoms=u.atoms.n_atoms, chunk_frames=16)
+    for f in u.trajectory.read_block(0, 48)[0]:
+        live.append(f)
+    live.seal()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        n0 = fp.planar_sums.launches
+        a = AlignedRMSF(Universe(u.topology, StoreReader(store, follow=True)),
+                        select="name CA", engine="fused").run_streaming(
+            window=16, device=dev, batch_size=16, transfer_dtype="int16")
+        launches = fp.planar_sums.launches - n0
+        r = RMSF(Universe(u.topology, StoreReader(store, follow=True))
+                 .select_atoms("name CA")).run_streaming(
+            window=16, device=dev, batch_size=16)
+        out[dev] = (a, r, launches)
+    (ag, rg, lg), (ac, rc, lc) = out["cuda"], out["cpu"]
+    # recompute over the prefix: 1 + 2 + 3 blocks, both passes
+    assert lg == 2 * (1 + 2 + 3) and lc == 0
+    for x, y in ((ag, ac), (rg, rc)):
+        assert ([s["frames"] for s in x.results.stream_snapshots]
+                == [s["frames"] for s in y.results.stream_snapshots]
+                == [16, 32, 48])
+    np.testing.assert_allclose(ag.results.rmsf, ac.results.rmsf, atol=5e-4)
+    np.testing.assert_allclose(rg.results.rmsf, rc.results.rmsf, atol=1e-5)

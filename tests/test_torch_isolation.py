@@ -132,6 +132,31 @@ rs = AlignedRMSF(us, select="name CA", engine="fused").run(
     backend="torch", device="cpu", batch_size=8, transfer_dtype="int16")
 assert np.isfinite(rs.results.rmsf).all() and set(us.trajectory._f32) <= {0}
 assert obs.METRICS.snapshot()["mdtpu_fused_blocks_total"]["values"]
+# the streaming and multi-device slice: every new module imports, the
+# mesh (fused int16, four CPU shards), the ring RDF, the MPI executor
+# over an in-process communicator, the dry run and a streamed RMSF
+# from a follow store run, and mpi4py is not imported on the way
+from mdanalysis_mpi_tpu_torch import parallel
+for m in pkgutil.iter_modules(parallel.__path__):
+    importlib.import_module(parallel.__name__ + "." + m.name)
+import mdanalysis_mpi_tpu_torch.ops.ring
+from mdanalysis_mpi_tpu_torch.parallel.dryrun import dryrun_multichip
+from mdanalysis_mpi_tpu_torch.parallel.mpi import MPIExecutor, ThreadComm
+from mdanalysis_mpi_tpu_torch.analysis import RMSF
+rm = AlignedRMSF(u2, select="name CA", engine="fused").run(
+    backend="mesh", devices=["cpu"] * 4, batch_size=2,
+    transfer_dtype="int16")
+assert np.abs(rm.results.rmsf - r.results.rmsf).max() < 1e-3
+gr = InterRDF(ow, ow, nbins=12, range=(0.0, 4.5), engine="ring").run(
+    backend="mesh", devices=["cpu"] * 2, batch_size=2)
+np.testing.assert_allclose(gr.results.count, g.results.count)
+rmpi = RMSF(ca).run(backend=MPIExecutor(comm=ThreadComm.make(1)[0]))
+assert np.isfinite(rmpi.results.rmsf).all()
+assert set(dryrun_multichip(2, device="cpu")) >= {"float32", "ring_rdf"}
+rst = RMSF(Universe(u.topology, store.StoreReader(store_dir, follow=True))
+           .select_atoms("name CA")).run_streaming(device="cpu")
+assert [sn["frames"] for sn in rst.results.stream_snapshots] == [8, 12]
+assert "mpi4py" not in sys.modules
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "mdanalysis_mpi_tpu")
              or m.startswith(("jax.", "jaxlib.", "mdanalysis_mpi_tpu.")))
@@ -157,7 +182,10 @@ if not torch.cuda.is_available():
                                   refgroup=(up.select_atoms("name CA"), cb),
                                   radius=6.0).run(),
                  lambda: AtomicDistances(up.select_atoms("name CA"),
-                                         cb).run()):
+                                         cb).run(),
+                 lambda: RMSF(ca).run(backend="mesh"),
+                 lambda: RMSF(ca).run_streaming(),
+                 lambda: dryrun_multichip(2)):
         try:
             call()
         except RuntimeError as exc:
@@ -166,6 +194,28 @@ if not torch.cuda.is_available():
             raise AssertionError("ran without a GPU and without device='cpu'")
 print("ISOLATED")
 """
+
+
+def test_mpi4py_is_imported_only_inside_world_comm():
+    """``parallel/mpi.py`` imports mpi4py lazily, in ``_world_comm``
+    alone, so the module imports where mpi4py is not installed."""
+    path = os.path.join(PKG, "parallel", "mpi.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    sites = []
+    for fn in ast.walk(tree):
+        if not isinstance(fn, ast.FunctionDef):
+            continue
+        for node in ast.walk(fn):
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = ([a.name for a in node.names]
+                         if isinstance(node, ast.Import)
+                         else [node.module or ""])
+                if any(n.split(".")[0] == "mpi4py" for n in names):
+                    sites.append(fn.name)
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))
+           and "mpi4py" in ast.dump(n)]
+    assert not top and sites == ["_world_comm"], (top, sites)
 
 
 def _env():

@@ -310,8 +310,14 @@ def test_interrdf_engine_resolution(waters):
     done = analysis.InterRDF(ow, ow, nbins=10, range=(0.0, 6.0)).run(
         batch_size=2, **CPU)
     assert done._resolved_engine == "xla"   # 'auto' on the CPU
-    with pytest.raises(NotImplementedError, match="A7"):
-        analysis.InterRDF(ow, ow, engine="ring")
+    # the atom-sharded ring is a mesh-only engine: it resolves to
+    # itself and the single-device backend refuses it
+    ring = analysis.InterRDF(ow, ow, nbins=10, range=(0.0, 6.0),
+                             engine="ring")
+    ring._prepare()
+    assert ring._resolve_engine() == "ring" and ring._mesh_only
+    with pytest.raises(ValueError, match="mesh"):
+        ring.run(batch_size=2, **CPU)
     with pytest.raises(ValueError, match="engine must be"):
         analysis.InterRDF(ow, ow, engine="fused")
     with pytest.raises(ValueError, match="norm must be"):
