@@ -69,9 +69,10 @@ prints no ok line):
    coordinates against the raw reference frame (at this system's ~90 Å
    range int16 resolves ~0.003 Å, so frame 0 alone sits ~0.0014 Å from
    the raw oracle's 0: the wire format's error, printed, not gated).
-   Prints whether the batched SVD makes the host wait: the runtime
-   synchronisations and device-to-host copies ``torch.profiler`` records
-   in one Kabsch solve of a block and in one whole run.  Then
+   Prints the runtime synchronisations and device-to-host copies
+   ``torch.profiler`` records in one Kabsch solve of a block (QCP on the
+   device; a batched ``torch.linalg.svd`` made the host wait 3 times)
+   and in one whole run.  Then
    ``AlignTraj(u, select='heavy', in_memory=False)`` streams the first
    256 frames (all 100,000 atoms) to a DCD in a temporary directory;
    read back through ``DCDReader``, its ``RMSD(superposition=False)``
@@ -135,6 +136,38 @@ prints no ok line):
    monotone up to 1,024 frames and the final RMSF within 1e-5 Å of the
    closed-file run over the sealed store. Prints each leg's wall and
    frames/s; the phase's fused launches join the kernel table's count.
+
+10. Dispatch folding, checkpointing and resilient runs (after phase 9,
+   on phase 4's system and wire).  (a) The main path, fused int16 at B =
+   512, with ``scan_k=1`` and with ``'auto'``, each a first run and
+   three repeats over one ``DeviceBlockCache`` (a cached group runs
+   eagerly at its first hit, is captured as a CUDA graph at its second
+   and replayed from then on): the RMSF must be ``torch.equal`` across
+   all eight, each run must launch the fused kernel 8 times, and the
+   two captured graphs (one a pass) must each hold 4 fused launches;
+   prints each run's wall, pass split and graph captures and replays,
+   and the host waits of one replay of each graph (none of its own
+   allowed) and of a whole replayed run.  (b) The same at float32 (the
+   generic form, Kabsch by QCP on the device) and for the ``RMSD``
+   series, with the host waits of a 4-block float32 RMSD run beside the
+   batched SVD's 11.  (c) ``InterRDF`` at phase 5's shape with a cache:
+   the raw counts ``torch.equal`` across ``scan_k`` settings, 4
+   pair-histogram launches a run, and 4 inside the graph.  (d)
+   ``run_checkpointed`` of AlignedRMSF in 1,024-frame chunks, crashed
+   (an injected ``InjectedCrash`` at the ``kernel`` site) at pass 2's
+   second chunk, then resumed: equal to the uninterrupted checkpointed
+   run.  (e) ``run(resilient=...)`` with no fault: 8 launches, no
+   demotion, the RMSF equal to (a)'s; with 2 injected transient kernel
+   faults: retried on the fused rung, 8 launches, equal to (a)'s; an
+   injected ``KernelLaunchError`` and an endless kernel fault must
+   raise (on the card the chain never leaves the kernel).  (f) The
+   same first run over the heavy atoms' first 1,024 frames (saved by
+   this phase) in two fresh processes, one cold and
+   one after ``warmup_analysis``: the cold run must build (load) the
+   kernel library, the warm process's warmup must, and its run must
+   not; both RMSF equal.  The phase's launches in the kernel table are
+   summed from the counts read around each of its calls, the profiled
+   replays included and the fresh processes' left out.
 
 Phase 3 also holds the pair-histogram kernel (``ops/fused_distances.
 pair_histogram``, ``csrc/pair_histogram.cu``) against
@@ -1147,7 +1180,7 @@ def phase_rmsd(card, u):
             if groups is None and dtype == "float32":
                 fitted = r.results.rmsd
 
-    # does the batched SVD make the host wait?  One solve on a block's
+    # does the Kabsch solve make the host wait?  One solve on a block's
     # worth of 3x3 matrices, then a whole float32 run
     h = torch.randn(bs, 3, 3, device="cuda")
     kabsch_from_correlation(h)
@@ -1155,7 +1188,7 @@ def phase_rmsd(card, u):
     _, run_waits, run_dtoh = host_syncs(lambda: RMSD(u, select=sel).run(
         transfer_dtype="float32", **run_kw))
     print(f"rmsd host syncs (each profile's closing synchronize "
-          f"included): one Kabsch solve (torch.linalg.svd + det) of "
+          f"included): one Kabsch solve (QCP) of "
           f"({bs}, 3, 3) on the card: waits {svd_waits}, {svd_dtoh} "
           f"device-to-host copies; a whole float32 RMSD run ({n_blocks} "
           f"blocks): waits {run_waits}, {run_dtoh} device-to-host copies")
@@ -1812,6 +1845,397 @@ def phase_multi(card, u, rmsf_single):
     return launches, time.perf_counter() - t_phase
 
 
+# ---------------------------------------------------------------- phase 10
+
+def graph_counts():
+    """This process's captured-graph counts (``utils/compile_cache``)."""
+    from mdanalysis_mpi_tpu_torch.utils import compile_cache
+
+    c = compile_cache.counters()
+    return {k: c[k] for k in ("graph_misses", "graph_hits", "replays",
+                              "build_misses")}
+
+
+def count_delta(before, after):
+    return {k: after[k] - before[k] for k in before}
+
+
+def kernel_counts():
+    """The two kernels' launch counts: (fused, pair histogram)."""
+    from mdanalysis_mpi_tpu_torch.ops import fused_distances as fd
+    from mdanalysis_mpi_tpu_torch.ops import fused_planar as fp
+
+    return fp.planar_sums.launches, fd.pair_histogram.launches
+
+
+def counted(fn, tally):
+    """``fn()`` with the two kernels' launches during it added to
+    ``tally`` ([fused, pair histogram]) → its result.  ``fn`` must not
+    reset the counts (``fused_passes`` does; add its own count)."""
+    f0, p0 = kernel_counts()
+    out = fn()
+    f1, p1 = kernel_counts()
+    tally[0] += f1 - f0
+    tally[1] += p1 - p0
+    return out
+
+
+SCAN_LEGS = ("first", "repeat 1", "repeat 2", "repeat 3")
+
+
+def scan_legs(card, u, run, label, n_launch, tally,
+              get=lambda r: r.results["rmsf"]):
+    """``run(scan_k, cache)`` with ``scan_k=1`` then ``'auto'``, each a
+    first run and three repeats over one cache (a group runs eagerly at
+    its first hit, is captured at its second and replayed from then
+    on) → (the 'auto' cache, its last run).  Every run's result
+    (``get``, a tensor on the card) must equal the first ``scan_k=1``
+    run's (``torch.equal``) and launch the kernels ``n_launch`` times;
+    adds the launches to ``tally`` and prints each run's wall, pass
+    split and graph counts."""
+    import torch
+
+    from mdanalysis_mpi_tpu_torch.parallel.executors import DeviceBlockCache
+
+    ref, out = None, None
+    for scan_k in (1, "auto"):
+        cache = DeviceBlockCache()
+        for leg in SCAN_LEGS:
+            g0 = graph_counts()
+            _, p0 = kernel_counts()
+            r, wall, t1, l1, fused = fused_passes(
+                lambda: run(scan_k, cache))
+            ph = kernel_counts()[1] - p0
+            tally[0] += fused
+            tally[1] += ph
+            g = count_delta(g0, graph_counts())
+            got = get(r)
+            ref = got if ref is None else ref
+            check(torch.equal(got, ref),
+                  f"{label}: scan_k={scan_k} {leg} not equal to scan_k=1")
+            check(n_launch is None or fused + ph == n_launch,
+                  f"{label}: scan_k={scan_k} {leg} launched {fused + ph} "
+                  f"times, expected {n_launch}")
+            split = (f"pass 1 {t1:.3f} s, pass 2 {wall - t1:.3f} s, "
+                     if l1 or t1 else "")
+            print(f"scan {label} scan_k={scan_k} {leg}: wall {wall:.3f} s "
+                  f"({split}launches {fused + ph}), graphs captured "
+                  f"{g['graph_misses']}, replayed {g['replays']}, equal "
+                  f"to scan_k=1 on {card}")
+            out = (cache, r)
+    return out
+
+
+def own_waits(waits, base):
+    """Host waits of a profiled call beyond those of profiling nothing
+    (``base``: the profile's own and its closing synchronize)."""
+    return sum(waits.values()) - sum(base.values())
+
+
+def replay_waits(cache, label, base, tally):
+    """One replay of each graph in ``cache`` under ``host_syncs``: none
+    may wait on the card beyond ``base`` (the waits of profiling an
+    empty call).  The replays' launches are added to ``tally``."""
+    import torch
+
+    dev = torch.device("cuda")
+    for prog in cache.graphs():
+        _, waits, dtoh = counted(lambda: host_syncs(
+            lambda: prog.replay(prog.params, prog.total, dev)), tally)
+        own = own_waits(waits, base)
+        print(f"scan {label}: one replay of a {len(prog.launches)}-"
+              f"kernel-launch graph: waits {waits} ({own} of its own "
+              f"beyond an empty profile's {base}), {dtoh} "
+              f"device-to-host copies")
+        check(own == 0 and dtoh == 0,
+              f"{label}: a replayed group waited on the card {own} "
+              f"time(s) of its own, {dtoh} copies to the host")
+
+
+WARMUP_FRAMES = 1024
+
+
+def warmup_child(mode, frames_path, out_path):
+    """One fresh process of phase 10 (f): phase 4's heavy atoms over
+    their first ``WARMUP_FRAMES`` frames (``frames_path``),
+    ``warmup_analysis`` first when ``mode`` is ``'warm'``, then one
+    fused int16 AlignedRMSF run; prints the build misses of each step,
+    the walls and launches, and saves the RMSF to ``out_path``."""
+    import torch
+
+    from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
+    from mdanalysis_mpi_tpu_torch.parallel.executors import (
+        DeviceBlockCache, TorchExecutor, warmup_analysis)
+
+    u = heavy_universe(np.load(frames_path))
+    exe = TorchExecutor(batch_size=E2E_BATCH, device="cuda",
+                        transfer_dtype="int16",
+                        block_cache=DeviceBlockCache())
+    g0 = graph_counts()
+    t0 = time.perf_counter()
+    n = (warmup_analysis(AlignedRMSF(u, select="heavy", engine="fused"),
+                         exe) if mode == "warm" else 0)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    g1 = graph_counts()
+    r, wall, _, _, launches = fused_passes(
+        lambda: AlignedRMSF(u, select="heavy", engine="fused").run(
+            backend=exe))
+    g2 = graph_counts()
+    np.save(out_path, r.results["rmsf"].cpu().numpy())
+    print(json.dumps({
+        "programs": n, "warmup_s": t_warm, "run_s": wall,
+        "launches": launches,
+        "warmup_builds": g1["build_misses"] - g0["build_misses"],
+        "run_builds": g2["build_misses"] - g1["build_misses"]}))
+
+
+def warmup_leg(card, u, tmp):
+    """Phase 10 (f): the same first run in two fresh processes, one
+    without and one after ``warmup_analysis``.  The cold run must build
+    (load) the kernel library once, the warm process's warmup must do
+    it and its run must build nothing; both RMSF equal."""
+    frames_path = os.path.join(tmp, "warmup_frames.npy")
+    np.save(frames_path, u.trajectory.read_block(
+        0, WARMUP_FRAMES, sel=u.select_atoms("heavy").indices)[0])
+    env = dict(os.environ, PYTHONPATH=HERE)
+    reports, rmsfs = {}, {}
+    for mode in ("cold", "warm"):
+        out_path = os.path.join(tmp, f"warmup_{mode}.npy")
+        try:
+            proc = subprocess.run(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                 "--warmup-probe", mode, frames_path, out_path],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True, timeout=RANK_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            raise SmokeFailure(f"warmup leg: the {mode} process ran over "
+                               f"{RANK_TIMEOUT_S} s")
+        check(proc.returncode == 0,
+              f"warmup leg: the {mode} process exited {proc.returncode}:\n"
+              f"{proc.stdout[-3000:]}")
+        reports[mode] = json.loads([
+            line for line in proc.stdout.splitlines()
+            if line.startswith("{")][-1])
+        rmsfs[mode] = np.load(out_path)
+    cold, warm = reports["cold"], reports["warm"]
+    n_launch = 2 * (-(-WARMUP_FRAMES // E2E_BATCH))
+    check(cold["run_builds"] == 1 and warm["warmup_builds"] == 1
+          and warm["run_builds"] == 0,
+          f"warmup leg: build misses cold run {cold['run_builds']}, "
+          f"warmup {warm['warmup_builds']}, warm run {warm['run_builds']}")
+    check(warm["programs"] >= 4, f"warmup leg: {warm['programs']} programs")
+    check(cold["launches"] == warm["launches"] == n_launch,
+          f"warmup leg: launches {cold['launches']} / {warm['launches']}, "
+          f"expected {n_launch}")
+    check(np.array_equal(rmsfs["cold"], rmsfs["warm"]),
+          "warmup leg: the warmed run's RMSF differs from the cold run's")
+    print(f"scan warmup: fresh processes, {WARMUP_FRAMES} frames: a cold "
+          f"first run {cold['run_s']:.3f} s (build misses "
+          f"{cold['run_builds']}); warmup_analysis {warm['warmup_s']:.3f} s "
+          f"({warm['programs']} programs, build misses "
+          f"{warm['warmup_builds']}), then the first run "
+          f"{warm['run_s']:.3f} s (build misses {warm['run_builds']}); "
+          f"launches {cold['launches']} each, RMSF equal, on {card}")
+
+
+def phase_scan(card, u, uw, ow):
+    """Phase 10: dispatch folding, checkpointing and resilient runs on
+    phase 4's system → (fused launches, pair-histogram launches), each
+    the sum of the counts measured around every call of the phase that
+    launches a kernel (profiled replays included)."""
+    import tempfile
+
+    import torch
+
+    from mdanalysis_mpi_tpu_torch import _build
+    from mdanalysis_mpi_tpu_torch.analysis import (RMSD, AlignedRMSF,
+                                                   InterRDF)
+    from mdanalysis_mpi_tpu_torch.ops import fused_distances as fd
+    from mdanalysis_mpi_tpu_torch.ops import fused_planar as fp
+    from mdanalysis_mpi_tpu_torch.parallel.executors import (
+        DeviceBlockCache, TorchExecutor)
+    from mdanalysis_mpi_tpu_torch.reliability import faults
+    from mdanalysis_mpi_tpu_torch.reliability.policy import (
+        ReliabilityPolicy)
+    from mdanalysis_mpi_tpu_torch.utils.checkpoint import run_checkpointed
+
+    t_phase = time.perf_counter()
+    bs, sel = E2E_BATCH, "heavy"
+    run_kw = dict(backend="torch", device="cuda", batch_size=bs)
+    n_blocks = -(-E2E_FRAMES // bs)
+    hints = u.trajectory.__dict__
+    _, base, _ = host_syncs(lambda: None)
+    tally = [0, 0]
+
+    # (a) the main path: fused int16, per-block against folded
+    def fused(scan_k, cache, **kw):
+        hints.pop("_quant_max_hints", None)
+        return AlignedRMSF(u, select=sel, engine="fused").run(
+            transfer_dtype="int16", block_cache=cache, scan_k=scan_k,
+            **run_kw, **kw)
+
+    cache_a, r_a = scan_legs(card, u, fused, "int16 fused", 2 * n_blocks,
+                             tally)
+    rmsf_a = r_a.results["rmsf"]
+    progs = cache_a.graphs()
+    check(len(progs) == 2 and all(
+        len(p.launches) == n_blocks
+        and all(w is fp.planar_sums for w in p.launches) for p in progs),
+          f"int16 fused: not two graphs of {n_blocks} fused launches")
+    replay_waits(cache_a, "int16 fused", base, tally)
+    _, run_waits, _ = counted(lambda: host_syncs(
+        lambda: fused("auto", cache_a)), tally)
+    print(f"scan int16 fused: a whole replayed run (both passes cached): "
+          f"waits {run_waits}, {own_waits(run_waits, base)} of its own")
+
+    # (b) float32: the generic form (QCP on the device), then RMSD
+    def generic(scan_k, cache):
+        return AlignedRMSF(u, select=sel).run(
+            transfer_dtype="float32", block_cache=cache, scan_k=scan_k,
+            **run_kw)
+
+    cache_b, _ = scan_legs(card, u, generic, "float32 generic", 0, tally)
+    replay_waits(cache_b, "float32 generic", base, tally)
+    del cache_b
+
+    def rmsd(scan_k, cache):
+        return RMSD(u, select=sel).run(transfer_dtype="float32",
+                                       block_cache=cache, scan_k=scan_k,
+                                       **run_kw)
+
+    cache_r, _ = scan_legs(card, u, rmsd, "rmsd float32", 0, tally,
+                           get=lambda r: r.results["rmsd"])
+    replay_waits(cache_r, "rmsd float32", base, tally)
+    _, w_plain, _ = host_syncs(lambda: RMSD(u, select=sel).run(
+        transfer_dtype="float32", **run_kw))
+    _, w_scan, _ = host_syncs(lambda: rmsd("auto", cache_r))
+    print(f"scan rmsd: host waits of a whole float32 RMSD run of "
+          f"{n_blocks} blocks (a batched SVD's: 11 with the closing "
+          f"synchronize): without a cache {w_plain} "
+          f"({own_waits(w_plain, base)} of its own); replayed from the "
+          f"cache {w_scan} ({own_waits(w_scan, base)} of its own)")
+    del cache_r
+
+    # (c) a cached InterRDF repeat at phase 5's shape
+    def rdf(scan_k, cache):
+        return InterRDF(ow, ow).run(backend="torch", device="cuda",
+                                    batch_size=RDF_BATCH, block_cache=cache,
+                                    scan_k=scan_k)
+
+    n_rdf = -(-RDF_FRAMES // RDF_BATCH)
+    cache_c, _ = scan_legs(card, uw, rdf, "rdf", n_rdf, tally,
+                           get=lambda r: r._last_total[0])
+    replay_waits(cache_c, "rdf", base, tally)
+    progs = cache_c.graphs()
+    check(len(progs) == 1 and all(
+        len(p.launches) == n_rdf
+        and all(w is fd.pair_histogram for w in p.launches) for p in progs),
+          f"rdf: not one graph of {n_rdf} pair-histogram launches")
+    del cache_c
+
+    # (d) two-pass checkpointing: a crash in pass 2, then a resume
+    tmp = tempfile.mkdtemp(prefix="mdtpu_ckpt_")
+    try:
+        ck_kw = dict(chunk_frames=E2E_FRAMES // 2, checkpoint_dir=tmp)
+
+        def exe(cache):
+            return TorchExecutor(batch_size=bs, device="cuda",
+                                 transfer_dtype="int16", block_cache=cache)
+
+        hints.pop("_quant_max_hints", None)
+        whole = AlignedRMSF(u, select=sel, engine="fused")
+        t0 = time.perf_counter()
+        counted(lambda: run_checkpointed(
+            whole, backend=exe(DeviceBlockCache()), **ck_kw), tally)
+        t_whole = time.perf_counter() - t0
+        hints.pop("_quant_max_hints", None)
+        cache_d = DeviceBlockCache()
+        # visits: pass 1 stages 2 blocks a chunk (4), pass 2 one group a
+        # chunk: the 6th visit is pass 2's second chunk
+        crash = faults.FaultSpec("kernel", "raise", after=5, times=1,
+                                 exc=faults.InjectedCrash)
+        with faults.inject(crash):
+            try:
+                counted(lambda: run_checkpointed(
+                    AlignedRMSF(u, select=sel, engine="fused"),
+                    backend=exe(cache_d), **ck_kw), tally)
+            except faults.InjectedCrash:
+                pass
+            else:
+                check(False, "checkpoint: the injected crash did not fire")
+        files = sorted(os.listdir(tmp))
+        check(len(files) == 2, f"checkpoint: {files} after the crash")
+        resumed = AlignedRMSF(u, select=sel, engine="fused")
+        t0 = time.perf_counter()
+        counted(lambda: run_checkpointed(resumed, backend=exe(cache_d),
+                                         **ck_kw), tally)
+        t_resume = time.perf_counter() - t0
+        check(not os.listdir(tmp), "checkpoint files left after success")
+        check(torch.equal(resumed.results["rmsf"], whole.results["rmsf"]),
+              "checkpoint: the resumed run is not equal to the whole run")
+        print(f"scan checkpoint: two passes in {E2E_FRAMES // 2}-frame "
+              f"chunks, a crash at pass 2's second chunk, then a resume "
+              f"(pass 1 loaded, pass 2 from its saved first chunk): equal "
+              f"to the uninterrupted run; uninterrupted {t_whole:.3f} s, "
+              f"resume {t_resume:.3f} s; files {files}; on {card}")
+
+        # (e) resilient: no fault stays fused; transient kernel faults
+        # retry on the same rung; a refused launch and an exhausted
+        # chain raise (on the card nothing finishes without the kernel)
+        pol = ReliabilityPolicy(backoff_s=0.001, checkpoint_dir=tmp)
+        r_e, wall_e, _, _, l_e = fused_passes(
+            lambda: fused("auto", None, resilient=pol))
+        tally[0] += l_e
+        rel = r_e.results.reliability
+        d_e = float((r_e.results["rmsf"] - rmsf_a).abs().max())
+        check(l_e == 2 * n_blocks and list(rel["fallbacks"]) == [],
+              f"resilient: launches {l_e}, fallbacks {rel['fallbacks']}")
+        check(d_e == 0.0, f"resilient: {d_e:.3g} from (a)")
+        with faults.inject(faults.FaultSpec("kernel", "raise", times=2)):
+            r_f, wall_f, _, _, l_f = fused_passes(
+                lambda: fused("auto", None, resilient=pol))
+        tally[0] += l_f
+        rel_f = r_f.results.reliability
+        d_f = float((r_f.results["rmsf"] - rmsf_a).abs().max())
+        check(l_f == 2 * n_blocks and list(rel_f["fallbacks"]) == []
+              and rel_f["retries"].get("kernel") == 2,
+              f"resilient retry: launches {l_f}, retries "
+              f"{rel_f['retries']}, fallbacks {rel_f['fallbacks']}")
+        check(d_f == 0.0, f"resilient retry: {d_f:.3g} from (a)")
+        raised = {}
+        for name, spec in (
+                ("refused launch", faults.FaultSpec(
+                    "kernel", "raise", times=1,
+                    exc=_build.KernelLaunchError)),
+                ("exhausted retries", faults.FaultSpec(
+                    "kernel", "raise", times=None))):
+            with faults.inject(spec):
+                try:
+                    counted(lambda: fused("auto", None, resilient=pol),
+                            tally)
+                except (_build.KernelLaunchError,
+                        faults.DeviceLossError) as exc:
+                    raised[name] = type(exc).__name__
+                else:
+                    check(False, f"resilient: a {name} on the card did "
+                          f"not raise")
+        print(f"scan resilient: no fault: wall {wall_e:.3f} s, launches "
+              f"{l_e} (as the plain run), no demotion, RMSF equal to "
+              f"(a)'s; 2 injected transient kernel faults: wall "
+              f"{wall_f:.3f} s, retried on the fused rung "
+              f"({rel_f['retries']}), launches {l_f}, RMSF equal to "
+              f"(a)'s; raised on the card: {raised}; on {card}")
+        warmup_leg(card, u, tmp)
+    finally:
+        faults.clear()
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"scan phase: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return tally[0], tally[1]
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not os.path.isdir(os.path.join(HERE, "mdanalysis_mpi_tpu_torch")):
@@ -1823,6 +2247,10 @@ def main(argv=None):
     if argv[:1] == ["--rank"]:
         # a rank of phase 9's two-rank leg, started by phase 9 itself
         rank_child(int(argv[1]), int(argv[2]), argv[3], argv[4])
+        return 0
+    if argv[:1] == ["--warmup-probe"]:
+        # a fresh process of phase 10's warmup leg, started by phase 10
+        warmup_child(argv[1], argv[2], argv[3])
         return 0
     try:
         card = phase_device()
@@ -1837,13 +2265,15 @@ def main(argv=None):
         launches, u_e2e, rmsf_e2e = phase_end_to_end(card)
         launches += phase_store(card, u_e2e)
         ph_launches = phase_rdf(card, u, ow, ph_rows["main"])
-        del u, ow
         phase_rmsd(card, u_e2e)
         multi_launches, t_multi = phase_multi(card, u_e2e, rmsf_e2e)
         launches += multi_launches
         print(f"multi-device phase: {t_multi:.1f} s, fused launches "
               f"{multi_launches}")
-        del u_e2e
+        scan_launches, scan_ph = phase_scan(card, u_e2e, u, ow)
+        launches += scan_launches
+        ph_launches += scan_ph
+        del u, ow, u_e2e
         phase_configs(card)
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", file=sys.stderr)

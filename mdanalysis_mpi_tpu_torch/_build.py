@@ -32,8 +32,51 @@ LIB_NAME = "libmdtpu_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+class KernelBuildError(RuntimeError):
+    """``nvcc`` failed (or is missing): the kernels of this checkout
+    cannot be built.  Never degradable — a resilient run raises it
+    too (:func:`mdanalysis_mpi_tpu_torch.reliability.policy.
+    is_degradable`)."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel launch returned a non-zero CUDA error code (the C entry
+    points return ``cudaGetLastError()`` after each launch).  Never
+    degradable: a resilient run raises it rather than finish the work
+    without the kernel (:func:`mdanalysis_mpi_tpu_torch.reliability.
+    policy.is_degradable`)."""
+
+
 _lock = threading.Lock()
 _lib = None
+_capture = threading.local()
+
+
+def count_launch(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel in ``wrapper.launches``.
+    Inside a CUDA graph capture the kernel does not run yet: the launch
+    is recorded on the capture (:func:`recording`) and counted at each
+    replay of the graph, where it runs."""
+    rec = getattr(_capture, "launches", None)
+    if rec is not None:
+        rec.append(wrapper)
+    else:
+        wrapper.launches += 1
+
+
+class recording:
+    """``with recording() as launches:`` — the kernel launches
+    :func:`count_launch` sees on this thread while a graph is captured,
+    in order (the capturer counts them at each replay)."""
+
+    def __enter__(self):
+        self._prev = getattr(_capture, "launches", None)
+        _capture.launches = []
+        return _capture.launches
+
+    def __exit__(self, *exc):
+        _capture.launches = self._prev
+        return False
 #: wall seconds of this process's build (0.0 when the library was
 #: already built), and the compiler's output (ptxas register and
 #: shared-memory report per kernel)
@@ -59,7 +102,7 @@ def nvcc() -> str:
                  "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
         if cand and os.path.isfile(cand):
             return cand
-    raise RuntimeError(
+    raise KernelBuildError(
         "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
         "and PATH); the port's CUDA kernels are built from csrc/ with it")
 
@@ -99,13 +142,13 @@ def build() -> str:
                 failed.append(s)
         BUILD_LOG = "\n".join(logs)
         if failed:
-            raise RuntimeError(
+            raise KernelBuildError(
                 f"nvcc failed for {failed}:\n{BUILD_LOG}")
         link = subprocess.run(
             [cc, "-shared", "-o", os.path.join(tmp, LIB_NAME), *objs],
             capture_output=True, text=True)
         if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
+            raise KernelBuildError(f"nvcc link failed:\n{link.stderr}")
         try:
             os.replace(tmp, out_dir)
         except OSError:
@@ -121,11 +164,18 @@ def build() -> str:
 def load() -> ctypes.CDLL:
     """The loaded kernel library (building it first if needed), with
     every C entry point's argument types declared."""
+    from mdanalysis_mpi_tpu_torch.utils import compile_cache
+
     global _lib
     with _lock:
         if _lib is not None:
+            compile_cache.note_build(built=False)
             return _lib
-        lib = ctypes.CDLL(build())
+        t0 = time.perf_counter()
+        path = build()
+        compile_cache.note_build(built=True,
+                                 seconds=time.perf_counter() - t0)
+        lib = ctypes.CDLL(path)
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.mdtpu_fused_planar.restype = ci
         lib.mdtpu_fused_planar.argtypes = [

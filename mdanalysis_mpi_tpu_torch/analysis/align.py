@@ -246,7 +246,16 @@ class AlignTraj(AnalysisBase):
 
     def run(self, start=None, stop=None, step=None, frames=None,
             backend: str = "torch", batch_size: int | None = 64,
-            device=None):
+            device=None, resilient=False):
+        if resilient:
+            # this run() drives its own superpose-and-write loop, not
+            # the executor hooks the reliability layer wraps; accepting
+            # the keyword would promise fault tolerance it cannot give
+            raise ValueError(
+                "AlignTraj does not support resilient= (it drives its "
+                "own write loop); wrap the call in your own retry, or "
+                "use AlignedRMSF/AverageStructure for resilient "
+                "reductions")
         from mdanalysis_mpi_tpu_torch.io.memory import MemoryReader
 
         if backend not in ("torch", "serial"):

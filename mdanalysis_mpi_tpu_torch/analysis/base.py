@@ -297,16 +297,45 @@ class AnalysisBase:
             return (idx.astype(np.int64) % n).tolist()
         return range(*slice(start, stop, step).indices(n))
 
+    def _warmup_analyses(self):
+        """The analyses whose programs a run of this one dispatches
+        (:func:`~mdanalysis_mpi_tpu_torch.parallel.executors.
+        warmup_analysis`): this one; multi-pass analyses list their
+        passes."""
+        return [self]
+
     def run(self, start=None, stop=None, step=None, frames=None,
             backend: str = "torch", batch_size: int | None = None,
-            **executor_kwargs):
+            resilient=False, **executor_kwargs):
         """Iterate frames [start:stop:step] — or an explicit ``frames``
         index list — on the chosen backend: ``"torch"`` (the default:
         single-device batches on ``cuda`` unless ``device="cpu"`` is
-        passed; executor keywords such as ``device``, ``transfer_dtype``
-        and ``block_cache`` pass through), ``"serial"`` (the float64
-        NumPy oracle), or an executor instance.
-        Returns ``self`` (``RMSF(ag).run().results.rmsf``)."""
+        passed; executor keywords such as ``device``, ``transfer_dtype``,
+        ``block_cache``, ``scan_k`` and ``prestage`` pass through),
+        ``"mesh"``, ``"serial"`` (the float64 NumPy oracle), or an
+        executor instance.  Returns ``self``
+        (``RMSF(ag).run().results.rmsf``).
+
+        ``resilient``: ``True`` (the default policy) or a
+        :class:`~mdanalysis_mpi_tpu_torch.reliability.ReliabilityPolicy`
+        runs fault-tolerant (the JAX package's ``run(resilient=...)``):
+        retry with backoff around staging, copies and dispatch,
+        corrupt-frame re-read → skip-with-count → abort, Mesh → Torch →
+        Serial degradation on a classified device failure, and — for
+        reduction analyses on a batch backend — checkpointing through
+        :mod:`~mdanalysis_mpi_tpu_torch.utils.checkpoint`, so the same
+        call after a crash resumes from the last folded partials.  The
+        run's report lands in ``results.reliability``."""
+        if resilient:
+            from mdanalysis_mpi_tpu_torch.reliability.policy import (
+                ReliabilityPolicy, run_resilient)
+
+            policy = (resilient if isinstance(resilient, ReliabilityPolicy)
+                      else ReliabilityPolicy())
+            return run_resilient(
+                self, policy, start=start, stop=stop, step=step,
+                frames=frames, backend=backend, batch_size=batch_size,
+                **executor_kwargs)
         if not self._accepts_updating_groups:
             self._refuse_updating_groups()
         frames = list(self._frames(start, stop, step, frames))

@@ -74,7 +74,7 @@ def _rmsd_groups_kernel(params, batch, boxes, mask):
      group_w, ref_groups_c) = params
     x_main = batch[:, main_slots]
     # ONE weighted COM + Kabsch solve serves both the main RMSD and the
-    # group transforms (rmsd_batch would redo the same SVD)
+    # group transforms (rmsd_batch would redo the same solve)
     com = weighted_center(x_main, masses)                 # (B, 3)
     main_c = x_main - com[:, None]
     r = kabsch_rotation_batch(main_c, ref_main_c, rot_w)
@@ -362,7 +362,7 @@ class AlignedRMSF(AnalysisBase):
     (RMSF.py:53-149; serial oracle RMSF.py:1-18).
 
     ``engine``: ``None``/``'auto'`` run the generic form (dequant,
-    Kabsch by SVD, batched moments — torch ops); ``'fused'`` runs both
+    Kabsch by QCP, batched moments — torch ops); ``'fused'`` runs both
     passes through the fused aligned-moments kernel on int16, int8 or
     delta staging (float32 staging keeps the generic form).
 
@@ -426,17 +426,93 @@ class AlignedRMSF(AnalysisBase):
         self.results.rmsf = rmsf_from_moments(t, m2)
         return self
 
+    def _warmup_analyses(self):
+        """Both passes (the JAX package's ``_warmup_analyses``).  Pass
+        2's reference is an input of its batch function, so zeros of
+        the selection's shape stand in for the average not yet
+        computed."""
+        sel = self._universe.select_atoms(self._select)
+        zeros = np.zeros((len(sel), 3), dtype=np.float32)
+        return [self._make_pass1(),
+                _MomentsToReference(self._universe, self._select, zeros,
+                                    self._verbose, engine=self._engine)]
+
     def run(self, start=None, stop=None, step=None, frames=None,
             backend: str = "torch", batch_size: int | None = None,
             **kwargs):
+        # resilient= applies PER PASS (the JAX package's AlignedRMSF):
+        # each pass is its own reduction with its own checkpoint
+        # fingerprint and degradation chain, so it rides the child
+        # run() calls, never the executor constructor
+        resilient = kwargs.pop("resilient", False)
         backend, kwargs = self._setup_backend(backend, kwargs)
         avg = self._make_pass1().run(
             start, stop, step, frames=frames, backend=backend,
-            batch_size=batch_size, **kwargs)
+            batch_size=batch_size, resilient=resilient, **kwargs)
         moments_pass = self._make_pass2(avg)
         moments_pass.run(start, stop, step, frames=frames, backend=backend,
-                         batch_size=batch_size, **kwargs)
+                         batch_size=batch_size, resilient=resilient,
+                         **kwargs)
         self._finalize(moments_pass)
+        if resilient:
+            # the per-pass reports land on the internal pass analyses;
+            # merge them onto the surface the user reads
+            from mdanalysis_mpi_tpu_torch.reliability.policy import (
+                merge_reliability_results)
+
+            self.results.reliability = merge_reliability_results(
+                avg.results.get("reliability"),
+                moments_pass.results.get("reliability"))
+        return self
+
+    def _run_checkpointed_multipass(self, path=None, chunk_frames=4096,
+                                    start=None, stop=None, step=None,
+                                    frames=None, backend="torch",
+                                    batch_size=None, checkpoint_dir=None,
+                                    delete_on_success=True,
+                                    **executor_kwargs):
+        """``utils.checkpoint.run_checkpointed`` for the two passes (the
+        JAX package's ``_run_checkpointed_multipass``): pass 1's
+        coordinate sums and pass 2's moments are both mergeable, so
+        each pass checkpoints under its own fingerprint.  Pass 1's file
+        survives its own completion, so a crash in pass 2 resumes pass
+        1 from its summary (one load, no recompute); both files go when
+        the run completes.  Chunk boundaries fall between executor
+        calls, so a scan group never spans a checkpoint."""
+        import os as _os_mod
+
+        from mdanalysis_mpi_tpu_torch.utils.checkpoint import (
+            checkpoint_path, run_checkpointed)
+
+        backend, executor_kwargs = self._setup_backend(
+            backend, executor_kwargs)
+        window = dict(start=start, stop=stop, step=step, frames=frames)
+        # an explicit path hosts pass 2 (the pass whose partials are
+        # the result); pass 1 gets a sibling.  path=None derives both
+        # (distinct class-name fingerprints)
+        p1_path = None if path is None else path + ".pass1"
+        avg = self._make_pass1()
+        run_checkpointed(
+            avg, path=p1_path, chunk_frames=chunk_frames,
+            backend=backend, batch_size=batch_size,
+            checkpoint_dir=checkpoint_dir, delete_on_success=False,
+            **window, **executor_kwargs)
+        if p1_path is None:
+            p1_path = checkpoint_path(
+                avg, list(avg._frame_indices),
+                checkpoint_dir=checkpoint_dir)
+        moments_pass = self._make_pass2(avg)
+        run_checkpointed(
+            moments_pass, path=path, chunk_frames=chunk_frames,
+            backend=backend, batch_size=batch_size,
+            checkpoint_dir=checkpoint_dir,
+            delete_on_success=delete_on_success,
+            **window, **executor_kwargs)
+        self._finalize(moments_pass)
+        # delete_on_success=False keeps BOTH pass files: the whole
+        # resumable state
+        if delete_on_success and _os_mod.path.exists(p1_path):
+            _os_mod.remove(p1_path)
         return self
 
 

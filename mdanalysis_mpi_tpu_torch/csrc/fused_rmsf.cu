@@ -87,6 +87,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 // Warp roles (see the header).
@@ -826,19 +828,44 @@ fused_planar_kernel(const Args a) {
   }
 }
 
+// The kernel's dynamic shared-memory ceiling, raised once per element
+// type and process to the card's limit: a host call, so it never runs
+// inside a stream capture (the first launch of each type comes from an
+// eager dispatch or a warmup).
+template <typename T>
+cudaError_t allow_full_smem() {
+  static std::once_flag once;
+  static cudaError_t err = cudaSuccess;
+  std::call_once(once, [] {
+    err = cudaFuncSetAttribute(fused_planar_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kSmemMax));
+  });
+  return err;
+}
+
+// One cooperative launch through cudaLaunchKernelExC with the
+// cooperative attribute: the same launch eagerly and under stream
+// capture, where it becomes a cooperative kernel node of the graph.
 template <typename T>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const long long smem = smem_bytes(a.slice, a.group, a.stages, sizeof(T));
   if (smem > kSmemMax) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_planar_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  cudaError_t e = allow_full_smem<T>();
   if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
   void* params[] = {const_cast<Args*>(&a)};
-  e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(fused_planar_kernel<T>),
-      dim3(a.blocks), dim3(kThreads), params, static_cast<size_t>(smem),
-      stream);
+  e = cudaLaunchKernelExC(
+      &cfg, reinterpret_cast<const void*>(fused_planar_kernel<T>), params);
   const cudaError_t last = cudaGetLastError();
   return e != cudaSuccess ? e : last;
 }

@@ -39,11 +39,13 @@ import time
 def start_capture() -> dict:
     """Snapshot the run-scoped baselines (call at run() entry)."""
     from mdanalysis_mpi_tpu_torch.obs import spans as _spans
+    from mdanalysis_mpi_tpu_torch.parallel import executors as _executors
     from mdanalysis_mpi_tpu_torch.utils import timers as _timers
     from mdanalysis_mpi_tpu_torch.utils.timers import TIMERS
 
     acc, calls = TIMERS.snapshot()
-    cap = {"t0": time.perf_counter(), "acc": acc, "calls": calls}
+    cap = {"t0": time.perf_counter(), "acc": acc, "calls": calls,
+           "batch_runs": _executors.BATCH_RUNS}
     ids = _spans.current_trace_ids()
     if ids:
         # a scheduler (or any caller) stamped trace ids on this
@@ -69,6 +71,7 @@ def finish_capture(cap: dict, analysis: str, backend: str,
                    n_frames: int) -> dict:
     """Build the RunReport dict from a :func:`start_capture` baseline."""
     from mdanalysis_mpi_tpu_torch.obs import spans as _spans
+    from mdanalysis_mpi_tpu_torch.parallel import executors as _executors
     from mdanalysis_mpi_tpu_torch.utils import timers as _timers
     from mdanalysis_mpi_tpu_torch.utils.timers import TIMERS
 
@@ -103,9 +106,11 @@ def finish_capture(cap: dict, analysis: str, backend: str,
         "phases": phases,
         "phase_attribution": attribution,
         "dispatch_count": dispatches,
-        # the port dispatches one block at a time: scan-folded
-        # dispatch comes with ROADMAP A4
-        "scan_k": 1,
+        # the resolved scan group size of the run's last batch pass
+        # (1 = per-block dispatch, or no batch pass in this run), beside
+        # the dispatch count it shrinks
+        "scan_k": (_executors.LAST_SCAN_K
+                   if _executors.BATCH_RUNS > cap["batch_runs"] else 1),
         "tracing": _spans.enabled(),
         "trace_out": _spans.trace_path(),
     }

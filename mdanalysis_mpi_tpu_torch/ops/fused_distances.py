@@ -201,10 +201,10 @@ def _launch(a, b, lengths, edges, exclude_self: bool) -> torch.Tensor:
             edges.data_ptr(), B, N, M, nbins, int(bool(exclude_self)),
             counts.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(
+        raise _build.KernelLaunchError(
             f"pair-histogram kernel launch failed: CUDA error {rc} "
             f"({lib.mdtpu_cuda_error_string(rc).decode()})")
-    pair_histogram.launches += 1
+    _build.count_launch(pair_histogram)
     return counts
 
 

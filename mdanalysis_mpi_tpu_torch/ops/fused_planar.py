@@ -45,8 +45,8 @@ import numpy as np
 import torch
 
 from mdanalysis_mpi_tpu_torch import device as _device  # noqa: F401  (TF32 off)
+from mdanalysis_mpi_tpu_torch.ops.align import qcp_rotation
 
-_NEWTON_ITERS = 40
 _DTYPE_CODES = {torch.int16: 0, torch.int8: 1, torch.float32: 2}
 _ITEMSIZE = {torch.int16: 2, torch.int8: 1, torch.float32: 4}
 # launch geometry of csrc/fused_rmsf.cu (fused_smem_bytes counts its
@@ -61,128 +61,6 @@ MAX_STAGES = 12
 MAX_BLOCKS = 160
 _MIN_STAGES = 3
 _GROUP_ROW_BYTES = 24
-
-
-def qcp_rotation(h):
-    """QCP rotation solve, elementwise over tensors of any shape: ``h``
-    is the nine correlation entries ``[h00..h22]`` (H = mobileᵀ·ref,
-    weights folded in); returns the nine rotation entries R00..R22 with
-    ``aligned = mobile @ R`` (the torch version of the JAX package's
-    ``pallas_fused._qcp_rotation``, same constants: Frobenius
-    normalisation, 40 Newton steps from ``sqrt(3·tr HᵀH)``, the
-    max-norm adjugate row, identity for a degenerate frame)."""
-    h00, h01, h02, h10, h11, h12, h20, h21, h22 = h
-
-    trHH_raw = (h00 * h00 + h01 * h01 + h02 * h02
-                + h10 * h10 + h11 * h11 + h12 * h12
-                + h20 * h20 + h21 * h21 + h22 * h22)
-    fro = torch.clamp(torch.sqrt(trHH_raw), min=1e-30)
-    s = 1.0 / fro
-    h00, h01, h02 = h00 * s, h01 * s, h02 * s
-    h10, h11, h12 = h10 * s, h11 * s, h12 * s
-    h20, h21, h22 = h20 * s, h21 * s, h22 * s
-
-    k00 = h00 + h11 + h22
-    k01 = h12 - h21
-    k02 = h20 - h02
-    k03 = h01 - h10
-    k11 = h00 - h11 - h22
-    k12 = h01 + h10
-    k13 = h20 + h02
-    k22 = -h00 + h11 - h22
-    k23 = h12 + h21
-    k33 = -h00 - h11 + h22
-
-    trHH = (h00 * h00 + h01 * h01 + h02 * h02
-            + h10 * h10 + h11 * h11 + h12 * h12
-            + h20 * h20 + h21 * h21 + h22 * h22)
-    detH = (h00 * (h11 * h22 - h12 * h21)
-            - h01 * (h10 * h22 - h12 * h20)
-            + h02 * (h10 * h21 - h11 * h20))
-    c2 = -2.0 * trHH
-    c1 = -8.0 * detH
-    d0 = (k11 * (k22 * k33 - k23 * k23)
-          - k12 * (k12 * k33 - k23 * k13)
-          + k13 * (k12 * k23 - k22 * k13))
-    d1 = (k01 * (k22 * k33 - k23 * k23)
-          - k12 * (k02 * k33 - k23 * k03)
-          + k13 * (k02 * k23 - k22 * k03))
-    d2 = (k01 * (k12 * k33 - k23 * k13)
-          - k11 * (k02 * k33 - k23 * k03)
-          + k13 * (k02 * k13 - k12 * k03))
-    d3 = (k01 * (k12 * k23 - k22 * k13)
-          - k11 * (k02 * k23 - k22 * k03)
-          + k12 * (k02 * k13 - k12 * k03))
-    c0 = k00 * d0 - k01 * d1 + k02 * d2 - k03 * d3
-
-    lam = torch.sqrt(3.0 * trHH) + 1e-6
-    for _ in range(_NEWTON_ITERS):
-        lam2 = lam * lam
-        p = lam2 * lam2 + c2 * lam2 + c1 * lam + c0
-        dp = 4.0 * lam2 * lam + 2.0 * c2 * lam + c1
-        dp = torch.where(torch.abs(dp) < 1e-30,
-                         torch.full_like(dp, 1e-30), dp)
-        lam = lam - p / dp
-
-    a00 = k00 - lam
-    a11 = k11 - lam
-    a22 = k22 - lam
-    a33 = k33 - lam
-    a01, a02, a03, a12, a13, a23 = k01, k02, k03, k12, k13, k23
-
-    def det3(b00, b01, b02, b10, b11, b12, b20, b21, b22):
-        return (b00 * (b11 * b22 - b12 * b21)
-                - b01 * (b10 * b22 - b12 * b20)
-                + b02 * (b10 * b21 - b11 * b20))
-
-    rows = [
-        (det3(a11, a12, a13, a12, a22, a23, a13, a23, a33),
-         -det3(a01, a12, a13, a02, a22, a23, a03, a23, a33),
-         det3(a01, a11, a13, a02, a12, a23, a03, a13, a33),
-         -det3(a01, a11, a12, a02, a12, a22, a03, a13, a23)),
-        (-det3(a01, a02, a03, a12, a22, a23, a13, a23, a33),
-         det3(a00, a02, a03, a02, a22, a23, a03, a23, a33),
-         -det3(a00, a01, a03, a02, a12, a23, a03, a13, a33),
-         det3(a00, a01, a02, a02, a12, a22, a03, a13, a23)),
-        (det3(a01, a02, a03, a11, a12, a13, a13, a23, a33),
-         -det3(a00, a02, a03, a01, a12, a13, a03, a23, a33),
-         det3(a00, a01, a03, a01, a11, a13, a03, a13, a33),
-         -det3(a00, a01, a02, a01, a11, a12, a03, a13, a23)),
-        (-det3(a01, a02, a03, a11, a12, a13, a12, a22, a23),
-         det3(a00, a02, a03, a01, a12, a13, a02, a22, a23),
-         -det3(a00, a01, a03, a01, a11, a13, a02, a12, a23),
-         det3(a00, a01, a02, a01, a11, a12, a02, a12, a22)),
-    ]
-    qa, qb, qc, qd = rows[0]
-    nbest = qa * qa + qb * qb + qc * qc + qd * qd
-    for ra, rb, rc, rd in rows[1:]:
-        n = ra * ra + rb * rb + rc * rc + rd * rd
-        use = n > nbest
-        qa = torch.where(use, ra, qa)
-        qb = torch.where(use, rb, qb)
-        qc = torch.where(use, rc, qc)
-        qd = torch.where(use, rd, qd)
-        nbest = torch.maximum(nbest, n)
-
-    nrm = torch.sqrt(torch.clamp(nbest, min=0.0))
-    degenerate = nrm < 1e-18
-    invn = torch.where(degenerate, torch.zeros_like(nrm),
-                       1.0 / torch.clamp(nrm, min=1e-30))
-    qw = torch.where(degenerate, torch.ones_like(qa), qa * invn)
-    qx = qb * invn
-    qy = qc * invn
-    qz = qd * invn
-
-    r00 = qw * qw + qx * qx - qy * qy - qz * qz
-    r10 = 2.0 * (qx * qy - qw * qz)
-    r20 = 2.0 * (qx * qz + qw * qy)
-    r01 = 2.0 * (qx * qy + qw * qz)
-    r11 = qw * qw - qx * qx + qy * qy - qz * qz
-    r21 = 2.0 * (qy * qz - qw * qx)
-    r02 = 2.0 * (qx * qz - qw * qy)
-    r12 = 2.0 * (qy * qz + qw * qx)
-    r22 = qw * qw - qx * qx - qy * qy + qz * qz
-    return r00, r01, r02, r10, r11, r12, r20, r21, r22
 
 
 def _inv_column(inv_scale, B: int, device) -> torch.Tensor:
@@ -354,7 +232,7 @@ def _launch(qp, inv_scale, wN, refc_p, amask, sref, fmask):
             slice_atoms, blocks, group, stages, scratch.data_ptr(),
             out.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(
+        raise _build.KernelLaunchError(
             f"fused kernel launch failed: CUDA error {rc} "
             f"({lib.mdtpu_cuda_error_string(rc).decode()})")
     return out
@@ -365,17 +243,20 @@ def planar_sums(qp, inv_scale, wN, refc_p, amask, sref, fmask):
 
     ``inv_scale``: a scalar, or per-frame ``(B,)``/``(B,1,1)``.  On a
     CUDA tensor this launches the CUDA kernel (and counts it in
-    ``planar_sums.launches``) or raises; on a CPU tensor it runs the
-    plain version."""
+    ``planar_sums.launches``; a launch captured into a CUDA graph counts
+    at each replay) or raises; on a CPU tensor it runs the plain
+    version."""
     if qp.device.type == "cpu":
         return planar_sums_plain(qp, inv_scale, wN, refc_p, amask, sref,
                                  fmask)
     if qp.device.type != "cuda":
         raise ValueError(
             f"fused kernel: no kernel for device {qp.device}")
+    from mdanalysis_mpi_tpu_torch import _build
+
     out = _launch(qp, inv_scale, wN, refc_p, amask, sref,
                   fmask.to(torch.float32))
-    planar_sums.launches += 1
+    _build.count_launch(planar_sums)
     return out
 
 

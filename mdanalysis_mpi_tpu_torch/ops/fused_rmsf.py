@@ -1,5 +1,5 @@
 """The fused aligned-moments path's contract: selection padding, the
-params tuple, engine validation and routing, and the interleaved SVD
+params tuple, engine validation and routing, and the interleaved
 form of the algebra (the counterpart of the JAX package's
 ``ops/pallas_rmsf.py``).  The kernel itself, its plain version and
 its wrapper live in :mod:`mdanalysis_mpi_tpu_torch.ops.fused_planar`.
@@ -126,7 +126,8 @@ def quantized_batch(kind: str, engine, transfer_dtype: str, idx,
 
 
 def _core(q, inv_scale, wN, refc_p, amask, sref, fmask):
-    """The interleaved SVD form: quantized ``(B, S, 3)`` block →
+    """The interleaved form (Kabsch by :func:`~mdanalysis_mpi_tpu_torch.
+    ops.align.kabsch_from_correlation`): quantized ``(B, S, 3)`` block →
     ``(T, Σdev, Σdev²)`` with ``dev = (x−com)·R − ref_c``, padded atoms
     zeroed; sums shaped ``(S, 3)``.  ``inv_scale`` is a scalar or a
     ``(B, 1, 1)`` per-frame array.  Plain torch; the oracle the fused

@@ -70,6 +70,26 @@ def reduce_moments(summaries):
     return acc
 
 
+def moments_scan_step(carry, block, mask=None):
+    """One scan step (the JAX package's ``moments_scan_step``): fold
+    ``block``'s batch moments into the (T, mean, M2) ``carry`` —
+    exactly ``merge_moments(carry, batch_moments(block, mask))``."""
+    return merge_moments(carry, batch_moments(block, mask))
+
+
+def scan_moments(blocks, masks=None):
+    """Moments of a stacked (K, B, N, 3) block group (the JAX package's
+    ``scan_moments``, a ``lax.scan``): the carry seeds from block 0 and
+    each step folds one block in block order, so the result equals
+    ``reduce_moments`` of the per-block moments.  ``masks``: (K, B) or
+    None."""
+    acc = batch_moments(blocks[0], None if masks is None else masks[0])
+    for k in range(1, blocks.shape[0]):
+        acc = moments_scan_step(acc, blocks[k],
+                                None if masks is None else masks[k])
+    return acc
+
+
 def psum_moments(summaries, comm=None):
     """K-way moment merge of per-device summaries (the JAX package's
     ``psum_moments``, a merge across a mesh axis).

@@ -1,9 +1,9 @@
 """RMSD ops (BASELINE config 3: RMSD time series with least-squares
 superposition to a reference frame), on torch tensors.
 
-The algebra is the JAX package's ``ops/rmsd.py``: the generic Kabsch
-solve of :mod:`.align` (one batched 3×3 ``torch.linalg.svd`` plus the
-det-correction) and the RMSD of the aligned residual.
+The algebra is the JAX package's ``ops/rmsd.py``: the Kabsch solve of
+:mod:`.align` (by QCP, with no host synchronisation, where the JAX
+package takes an SVD) and the RMSD of the aligned residual.
 """
 
 from __future__ import annotations
@@ -48,3 +48,20 @@ def rmsd_batch(
         rot = kabsch_rotation_batch(cc, ref_sel_centered, rot_weights)
         cc = torch.einsum("bni,bij->bnj", cc, rot)
     return rmsd(cc, ref_sel_centered, rmsd_weights)
+
+
+def scan_rmsd_batch(blocks: torch.Tensor, com_weights: torch.Tensor,
+                    ref_sel_centered: torch.Tensor,
+                    superposition: bool = True,
+                    rot_weights: torch.Tensor | None = None,
+                    rmsd_weights: torch.Tensor | None = None
+                    ) -> torch.Tensor:
+    """RMSD series of a stacked (K, B, S, 3) block group (the JAX
+    package's ``scan_rmsd_batch``, a ``lax.scan`` that emits): the
+    per-block :func:`rmsd_batch` values in block order, flattened to
+    the (K·B,) frame order the per-block schedule concatenates to."""
+    return torch.cat([rmsd_batch(blocks[k], com_weights, ref_sel_centered,
+                                 superposition=superposition,
+                                 rot_weights=rot_weights,
+                                 rmsd_weights=rmsd_weights)
+                      for k in range(blocks.shape[0])])

@@ -21,9 +21,9 @@ Failure semantics (SURVEY.md §5.3): like the reference, a rank that
 dies before its collective leaves the others blocked in
 ``allreduce``/``allgather`` — MPI offers no cheap liveness detection,
 so this path fails fast only on *raising* ranks (the exception
-propagates before the collective).  Crash-durable long runs need the
-checkpointed single-controller runs, which the port does not have yet
-(ROADMAP A4).
+propagates before the collective).  Crash-durable long runs use the
+checkpointed single-controller runs (``utils/checkpoint.py``,
+``run(resilient=...)``).
 
 mpi4py is an *optional* dependency: :class:`MPIExecutor` accepts any
 object with the tiny communicator surface it uses (``Get_rank``,

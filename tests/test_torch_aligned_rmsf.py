@@ -106,7 +106,9 @@ def test_fused_matches_jax_pallas_interpret(u56, ju56, monkeypatch):
 
 def test_pass2_reads_pass1_blocks_from_the_cache(u56):
     """Both passes go through the fused function, and pass 2 is served
-    entirely from the blocks pass 1 left in the device block cache."""
+    entirely from the blocks pass 1 left in the device block cache
+    (block by block: ``scan_k=1``, the per-block schedule; the folded
+    schedule is held in tests/test_torch_scan_fold.py)."""
     cache = DeviceBlockCache()
     calls = []
     real = fp.planar_sums
@@ -119,7 +121,7 @@ def test_pass2_reads_pass1_blocks_from_the_cache(u56):
         fp.planar_sums = counting
         AlignedRMSF(u56, select=SEL, engine="fused").run(
             backend="torch", device="cpu", batch_size=16,
-            transfer_dtype="int16", block_cache=cache)
+            transfer_dtype="int16", block_cache=cache, scan_k=1)
     finally:
         fp.planar_sums = real
     n_blocks = 4                      # 56 frames at batch 16
@@ -138,7 +140,7 @@ def test_fused_run_is_bit_reproducible(u56):
 
 def test_executor_instance_gets_a_cache(u56, oracle56):
     exe = TorchExecutor(batch_size=16, device="cpu",
-                        transfer_dtype="int16")
+                        transfer_dtype="int16", scan_k=1)
     r = AlignedRMSF(u56, select=SEL, engine="fused").run(backend=exe)
     assert isinstance(exe.block_cache, DeviceBlockCache)
     assert exe.block_cache.hits == 4

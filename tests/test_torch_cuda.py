@@ -468,3 +468,249 @@ def test_cuda_run_streaming_from_a_follow_store_matches_cpu(tmp_path):
                 == [16, 32, 48])
     np.testing.assert_allclose(ag.results.rmsf, ac.results.rmsf, atol=5e-4)
     np.testing.assert_allclose(rg.results.rmsf, rc.results.rmsf, atol=1e-5)
+
+
+# ---- scan-folded dispatch: a cached group replayed as a CUDA graph ----
+
+def _scan_runs(run):
+    """``run(scan_k, cache)`` per-block once, then three times folded
+    over one cache: a group runs eagerly at its first hit, is captured
+    and replayed at its second and replayed from then on (the first
+    run stacks pass 1 and runs pass 2 eagerly; the second runs pass 1
+    eagerly and captures pass 2; the third captures pass 1 and replays
+    pass 2) → (per-block, [the folded runs], the cache, [launches of
+    each folded run])."""
+    from mdanalysis_mpi_tpu_torch.parallel.executors import DeviceBlockCache
+
+    ref = run(1, DeviceBlockCache())
+    cache = DeviceBlockCache()
+    runs, launches = [], []
+    for _ in range(3):
+        l0 = fp.planar_sums.launches + fd.pair_histogram.launches
+        runs.append(run("auto", cache))
+        launches.append(fp.planar_sums.launches + fd.pair_histogram.launches
+                        - l0)
+    torch.cuda.synchronize()
+    return ref, runs, cache, launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int16", "int8", "delta", "float32"])
+def test_cuda_scan_graph_equals_per_block_dispatch(dtype):
+    """AlignedRMSF(engine='fused'): the folded schedule (eager at a
+    group's first hit, a captured graph of the group from its second)
+    gives the per-block schedule's RMSF bit for bit, and every fused
+    launch inside a graph counts at each replay."""
+    from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
+    from mdanalysis_mpi_tpu_torch.testing import make_protein_universe
+    from mdanalysis_mpi_tpu_torch.utils import compile_cache
+
+    _card()
+    u = make_protein_universe(n_residues=300, n_frames=60, noise=0.3, seed=4)
+
+    def run(scan_k, cache):
+        u.trajectory.__dict__.pop("_quant_max_hints", None)
+        return AlignedRMSF(u, select="name CA", engine="fused").run(
+            backend="torch", device="cuda", batch_size=16,
+            transfer_dtype=dtype, block_cache=cache, scan_k=scan_k)
+
+    g0 = compile_cache.counters()
+    ref, runs, cache, launches = _scan_runs(run)
+    g1 = compile_cache.counters()
+    for r in runs:
+        assert torch.equal(r.results["rmsf"], ref.results["rmsf"])
+    # 60 frames at batch 16: 4 blocks a pass, one group of 4
+    assert launches == ([8, 8, 8] if dtype != "float32" else [0, 0, 0])
+    graphs = cache.graphs()
+    assert len(graphs) == 2                                # one a pass
+    if dtype != "float32":
+        assert all(len(g.launches) == 4 for g in graphs)
+    assert g1["graph_misses"] - g0["graph_misses"] == 2
+    assert g1["graph_hits"] - g0["graph_hits"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_scan_graph_rmsd_series_and_rdf():
+    """The RMSD series and a cached InterRDF repeat: the folded
+    schedule equals the per-block one (the pair-histogram counts
+    exactly), the kernel launching inside the replayed graph."""
+    from mdanalysis_mpi_tpu_torch.analysis import RMSD, InterRDF
+    from mdanalysis_mpi_tpu_torch.testing import (make_protein_universe,
+                                                  make_water_universe)
+
+    _card()
+    u = make_protein_universe(n_residues=120, n_frames=40, noise=0.3, seed=6)
+    ref, runs, cache, _ = _scan_runs(lambda k, c: RMSD(
+        u, select="name CA").run(backend="torch", device="cuda",
+                                 batch_size=8, block_cache=c, scan_k=k))
+    for r in runs:
+        assert torch.equal(r.results["rmsd"], ref.results["rmsd"])
+    assert len(cache.graphs()) == 1
+    uw = make_water_universe(n_waters=600, n_frames=32, box=26.3)
+    ow = uw.select_atoms("name OW")
+    ref, runs, cache, launches = _scan_runs(lambda k, c: InterRDF(
+        ow, ow, nbins=40, range=(0.0, 8.0)).run(
+            backend="torch", device="cuda", batch_size=8, block_cache=c,
+            scan_k=k))
+    assert runs[0]._resolved_engine == "pallas"
+    for r in runs:
+        np.testing.assert_array_equal(r.results.count, ref.results.count)
+    # the first run populates, the second runs the group eagerly, the
+    # third captures and replays it: 4 launches each
+    assert launches == [4, 4, 4]
+    (graph,) = cache.graphs()
+    assert graph.launches == (fd.pair_histogram,) * 4
+
+
+@pytest.mark.cuda
+def test_cuda_graph_replay_makes_no_host_wait():
+    """One replay of a captured group under
+    ``torch.cuda.set_sync_debug_mode("error")`` raises nothing: no
+    readback, no synchronisation inside a replayed group (the Kabsch
+    solve is QCP, not ``torch.linalg.svd``)."""
+    from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
+    from mdanalysis_mpi_tpu_torch.parallel.executors import DeviceBlockCache
+    from mdanalysis_mpi_tpu_torch.testing import make_protein_universe
+
+    dev = _card()
+    u = make_protein_universe(n_residues=300, n_frames=48, noise=0.3, seed=5)
+    for engine, dtype in (("fused", "int16"), (None, "float32")):
+        cache = DeviceBlockCache()
+        for _ in range(3):
+            AlignedRMSF(u, select="name CA", engine=engine).run(
+                backend="torch", device="cuda", batch_size=16,
+                transfer_dtype=dtype, block_cache=cache)
+        graphs = cache.graphs()
+        assert len(graphs) == 2
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for prog in graphs:
+                prog.replay(prog.params, prog.total, dev)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_stale_graph_never_replayed_after_overwrite():
+    """``DeviceBlockCache.put`` over an entry with a graph releases the
+    entry's memory and drops its graph: the next hit runs the new entry
+    eagerly, the one after captures a new graph over it, and the result
+    stays the per-block one."""
+    from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
+    from mdanalysis_mpi_tpu_torch.parallel.executors import (
+        DeviceBlockCache, _clone_tree, _is_deleted, _tensors)
+    from mdanalysis_mpi_tpu_torch.testing import make_protein_universe
+    from mdanalysis_mpi_tpu_torch.utils import compile_cache
+
+    _card()
+    u = make_protein_universe(n_residues=300, n_frames=48, noise=0.3, seed=7)
+
+    def run(cache, scan_k="auto"):
+        u.trajectory.__dict__.pop("_quant_max_hints", None)
+        return AlignedRMSF(u, select="name CA", engine="fused").run(
+            backend="torch", device="cuda", batch_size=16,
+            transfer_dtype="int16", block_cache=cache, scan_k=scan_k)
+
+    ref = run(DeviceBlockCache(), scan_k=1)
+    cache = DeviceBlockCache()
+    run(cache)
+    run(cache)
+    (key,) = [k for k in cache._programs]
+    old = cache._store[key]
+    (old_prog,) = cache.graphs()
+    fresh = _clone_tree(old)
+    assert cache.put(key, fresh, cache._sizes[key])
+    assert key not in cache._programs and not cache.graphs()
+    assert all(_is_deleted(t) for t in _tensors(old))
+    c0 = compile_cache.counters()
+    eager = run(cache)
+    c1 = compile_cache.counters()
+    assert c1["replays"] == c0["replays"]
+    again = run(cache)
+    assert compile_cache.counters()["graph_misses"] - c1["graph_misses"] == 2
+    assert all(p is not old_prog for p in cache.graphs())
+    for r in (eager, again):
+        assert torch.equal(r.results["rmsf"], ref.results["rmsf"])
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_launch_error_and_build_error_are_not_degradable(
+        monkeypatch):
+    """A launch the card refuses raises ``KernelLaunchError``; neither
+    it nor a build failure is degradable, and a resilient run on the
+    card raises the launch error rather than finish without the
+    kernel."""
+    from mdanalysis_mpi_tpu_torch import _build
+    from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
+    from mdanalysis_mpi_tpu_torch.reliability.policy import (
+        ReliabilityPolicy, is_degradable)
+    from mdanalysis_mpi_tpu_torch.testing import make_protein_universe
+
+    dev = _card()
+    args, _ = _fused_case(16, 300, "int16", None, dev, seed=3)
+    # a geometry the kernel's entry point refuses (more blocks than it
+    # takes), as if the sizing had gone wrong
+    monkeypatch.setattr(fp, "fused_geometry",
+                        lambda *a: (16, fp.MAX_BLOCKS + 1, 1, 2))
+    with pytest.raises(_build.KernelLaunchError) as err:
+        fp.planar_sums(*args)
+    assert not is_degradable(err.value)
+    assert not is_degradable(_build.KernelBuildError("nvcc failed"))
+    u = make_protein_universe(n_residues=300, n_frames=32, noise=0.3, seed=3)
+    with pytest.raises(_build.KernelLaunchError):
+        AlignedRMSF(u, select="name CA", engine="fused").run(
+            backend="torch", device="cuda", batch_size=16,
+            transfer_dtype="int16",
+            resilient=ReliabilityPolicy(backoff_s=0.001, checkpoint=False))
+
+
+_WARMUP_PROBE = """
+import json, sys, time
+import torch
+from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
+from mdanalysis_mpi_tpu_torch.parallel.executors import (
+    DeviceBlockCache, TorchExecutor, warmup_analysis)
+from mdanalysis_mpi_tpu_torch.testing import make_protein_universe
+from mdanalysis_mpi_tpu_torch.utils import compile_cache
+
+u = make_protein_universe(n_residues=300, n_frames=64, noise=0.3, seed=8)
+exe = TorchExecutor(batch_size=16, device="cuda", transfer_dtype="int16",
+                    block_cache=DeviceBlockCache())
+w0 = compile_cache.counters()["build_misses"]
+n = (warmup_analysis(AlignedRMSF(u, select="name CA", engine="fused"), exe)
+     if sys.argv[1] == "warm" else 0)
+c0 = compile_cache.counters()["build_misses"]
+r = AlignedRMSF(u, select="name CA", engine="fused").run(backend=exe)
+torch.cuda.synchronize()
+print(json.dumps({"programs": n, "warmup_builds": c0 - w0,
+                  "run_builds": compile_cache.counters()["build_misses"] - c0,
+                  "rmsf": r.results["rmsf"].double().sum().item()}))
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_warmup_then_run_builds_nothing_in_a_fresh_process():
+    """In a fresh process the first fused run builds (loads) the kernel
+    library; after ``warmup_analysis`` the run builds nothing, because
+    the warmup did, and its RMSF is the cold run's."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    _card()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = {}
+    for mode in ("cold", "warm"):
+        proc = subprocess.run([sys.executable, "-c", _WARMUP_PROBE, mode],
+                              cwd=root, capture_output=True, text=True,
+                              timeout=600)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        out[mode] = json.loads(proc.stdout.strip().splitlines()[-1])
+    cold, warm = out["cold"], out["warm"]
+    assert cold["programs"] == 0 and cold["run_builds"] == 1
+    assert warm["programs"] > 0 and warm["warmup_builds"] == 1
+    assert warm["run_builds"] == 0
+    assert warm["rmsf"] == cold["rmsf"]

@@ -156,6 +156,36 @@ assert set(dryrun_multichip(2, device="cpu")) >= {"float32", "ring_rdf"}
 rst = RMSF(Universe(u.topology, store.StoreReader(store_dir, follow=True))
            .select_atoms("name CA")).run_streaming(device="cpu")
 assert [sn["frames"] for sn in rst.results.stream_snapshots] == [8, 12]
+# the scan-folding, checkpoint and reliability slice: every module of
+# the reliability package imports; a folded cached repeat, a resilient
+# run, a checkpointed two-pass run and the mesh with scan_k, prestage
+# and reliability, all without JAX
+from mdanalysis_mpi_tpu_torch import reliability
+for m in pkgutil.iter_modules(reliability.__path__):
+    importlib.import_module(reliability.__name__ + "." + m.name)
+from mdanalysis_mpi_tpu_torch.parallel.executors import (
+    DeviceBlockCache, MeshExecutor, warmup_analysis)
+from mdanalysis_mpi_tpu_torch.reliability import (ReliabilityPolicy,
+                                                  ReliabilityRuntime)
+from mdanalysis_mpi_tpu_torch.utils.checkpoint import run_checkpointed
+cache = DeviceBlockCache()
+for _ in range(2):
+    rf = AlignedRMSF(u2, select="name CA", engine="fused").run(
+        backend="torch", device="cpu", batch_size=4,
+        transfer_dtype="int16", block_cache=cache, scan_k="auto")
+assert any("scan" in k for k in cache._store)
+rr = RMSD(up, select="name CA").run(backend="serial", resilient=True)
+assert rr.results.reliability["fallbacks"] == []
+ck = AlignedRMSF(u2, select="name CA")
+run_checkpointed(ck, chunk_frames=8, backend="torch", device="cpu",
+                 batch_size=4, checkpoint_dir=tmp)
+assert np.isfinite(ck.results.rmsf).all()
+mx = MeshExecutor(devices=["cpu"] * 2, batch_size=2, scan_k=2,
+                  prestage=True,
+                  reliability=ReliabilityRuntime(ReliabilityPolicy()),
+                  block_cache=DeviceBlockCache())
+assert np.isfinite(RMSF(ca).run(backend=mx).results.rmsf).all()
+assert warmup_analysis(AlignedRMSF(u2, select="name CA"), mx) == 0
 assert "mpi4py" not in sys.modules
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "mdanalysis_mpi_tpu")

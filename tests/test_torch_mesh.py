@@ -193,14 +193,19 @@ def test_aligned_rmsf_mesh_matches_jax_mesh(pair, md_pair, td, engine,
 def test_aligned_rmsf_mesh_backend_name_and_block_cache(pair):
     up, _ = pair
     cache = executors.DeviceBlockCache()
+    # both runs start from the same adaptive-scale hints (the reader
+    # keeps them across runs), so they stage the same bytes
+    up.trajectory.__dict__.pop("_quant_max_hints", None)
     r = analysis.AlignedRMSF(up, select=SEL, engine="fused").run(
         backend="mesh", devices=CPU4, batch_size=4, transfer_dtype="int16",
-        block_cache=cache)
+        block_cache=cache, scan_k=1)
     # pass 2 reads the blocks pass 1 staged: one entry a global batch
+    # (scan_k=1, the per-block schedule)
     assert len(cache._store) == -(-30 // 16)
     assert cache.hits == len(cache._store)
+    up.trajectory.__dict__.pop("_quant_max_hints", None)
     again = analysis.AlignedRMSF(up, select=SEL, engine="fused").run(
-        backend=_port_mesh(transfer_dtype="int16"))
+        backend=_port_mesh(transfer_dtype="int16", scan_k=1))
     np.testing.assert_array_equal(r.results.rmsf, again.results.rmsf)
 
 
@@ -356,10 +361,26 @@ def test_delta_segments_must_split_evenly():
 
 @pytest.mark.parametrize("kwargs, item", [
     (dict(scan_k=4), "A4"), (dict(scan_k="auto"), "A4"),
-    (dict(prestage=True), "A9"), (dict(reliability=object()), "A9")])
-def test_deferred_features_name_their_roadmap_item(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        MeshExecutor(devices=CPU4, **kwargs)
+    (dict(prestage=True), "A9"), (dict(reliability=True), "A9")])
+def test_deferred_features_name_their_roadmap_item(kwargs, item, pair):
+    """The mesh features ROADMAP deferred to A4 (scan folding) and A9
+    (prestage, reliability) are ported: the mesh takes each, and a run
+    with it equals the plain mesh run to float32 rounding."""
+    from mdanalysis_mpi_tpu_torch.reliability.policy import (
+        ReliabilityPolicy, ReliabilityRuntime)
+
+    if kwargs.get("reliability"):
+        kwargs = dict(reliability=ReliabilityRuntime(ReliabilityPolicy()))
+    up, _ = pair
+    plain = analysis.AlignedRMSF(up, select=SEL).run(
+        backend="mesh", devices=CPU4, batch_size=4, scan_k=1)
+    m = MeshExecutor(devices=CPU4, batch_size=4, **kwargs)
+    m.block_cache = executors.DeviceBlockCache()
+    for _ in range(2):           # populate, then read the cache back
+        r = analysis.AlignedRMSF(up, select=SEL).run(backend=m)
+        np.testing.assert_allclose(r.results.rmsf, plain.results.rmsf,
+                                   atol=1e-5)
+    assert item in ("A4", "A9")
 
 
 def test_registered_backends_and_devices():
