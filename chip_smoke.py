@@ -169,6 +169,36 @@ prints no ok line):
    summed from the counts read around each of its calls, the profiled
    replays included and the fresh processes' left out.
 
+11. Neighbour search and what it unblocks (last; torch ops, neither
+   hand kernel may launch).  (a) Config 4's box, one frame
+   (``make_water_universe(32768, box=99.3, seed=0)``, 98,304 atoms):
+   ``self_capped_distance(all, 3.5, engine='torch')`` on the default
+   device (``cuda``), twice (first call and repeat, equal), against
+   ``engine='nsgrid'`` on the host: the same pairs in the same order but
+   for pairs whose float64 distance lies within 1e-4 Å of a cutoff (the
+   float32 class; counted and printed), common distances within 5e-4
+   Å; the same for the oxygens against all atoms with
+   ``min_cutoff=1.0``.  Prints K, the grid, the capacity, the candidate
+   count and the peak device memory.  (b) ``guess_bonds`` on those
+   atoms by ``engine='torch'`` and ``'auto'``: equal bonds, two O-H
+   bonds inside every water; ``u.bonds.values()`` and, after
+   ``guess_angles``, ``u.angles.values()`` against the plain formula on
+   the host (1e-9 Å, 1e-6°).  (c) ``HydrogenBondAnalysis`` on its batch
+   path: ``make_water_universe(3375, box=46.6, n_frames=256, seed=0)``
+   (6,750 H × 3,375 O = 22.8M candidate pairs, the largest box at water
+   density under ``MAX_BATCH_PAIRS``), batch 32: a per-block run
+   (``scan_k=1``) and three with ``scan_k='auto'`` over one cache (the
+   first per block, a repeat eager at the group's first hit, a repeat
+   captured as a CUDA graph and replayed), all ``torch.equal``; the
+   first 64 frames within 0.1% of each frame's count of
+   ``run(backend='serial')``.  Also times the batch function alone on
+   one staged block (CUDA events) beside the host's donor guess.  (d) ``LeafletFinder`` of a 48 × 48
+   lipid bilayer (4,608 lipids, cutoff 12 Å, PBC) by ``'auto'`` and
+   ``'torch'`` (equal groups, two leaflets), ``contact_matrix(...,
+   returntype='sparse')`` of (c)'s oxygens at 6 Å against the dense map,
+   and ``make_whole`` of (a)'s waters after wrapping them into the box
+   (every bond under 2 Å again).  Every leg prints its wall times.
+
 Phase 3 also holds the pair-histogram kernel (``ops/fused_distances.
 pair_histogram``, ``csrc/pair_histogram.cu``) against
 ``pair_histogram_plain`` on the card: the main shape (the first block of
@@ -271,6 +301,24 @@ RING_FRAMES = 16
 STREAM_FRAMES = 1024
 STREAM_CHUNK = 256
 RANK_TIMEOUT_S = 240
+# Phase 11: neighbour search.  The cell list at phase 5's width
+# (BASELINE config 4's water box, one frame); HydrogenBondAnalysis on
+# its batch path at the largest water box under the JAX package's
+# MAX_BATCH_PAIRS (3,375 waters at water density: 6,750 H x 3,375 O =
+# 22.8M candidate pairs), 256 frames, batch 32; a bilayer of 48 x 48
+# lipids a leaflet.  NS_DEVICE None is the port's default device.
+NS_CUTOFF = 3.5
+NS_MIN_CUTOFF = 1.0
+NS_EDGE = 1e-4
+NS_DIST_TOL = 5e-4
+HB_WATERS = 3375
+HB_BOX = 46.6
+HB_FRAMES = 256
+HB_BATCH = 32
+HB_SERIAL_FRAMES = 64
+HB_REL_TOL = 1e-3
+LEAFLET_SIDE = 48
+NS_DEVICE = None
 PH_NAME = "pair_histogram"
 PH_SOURCE = "mdanalysis_mpi_tpu_torch/csrc/pair_histogram.cu"
 PH_REPLACES = "mdanalysis_mpi_tpu/ops/pallas_distances.py:164"
@@ -2236,6 +2284,320 @@ def phase_scan(card, u, uw, ow):
     return tally[0], tally[1]
 
 
+# ---------------------------------------------------------------- phase 11
+
+def pair_keys(pairs, m):
+    return pairs[:, 0] * m + pairs[:, 1]
+
+
+def compare_pairs(label, got, want, a, b, dims, cutoffs):
+    """Hold the torch engine's ``(pairs, distances)`` to a host
+    engine's: the same pairs in the same (i, j) order, but for pairs
+    whose float64 distance lies within ``NS_EDGE`` of a cutoff (the
+    float32 class of the torch engine), and the common pairs' distances
+    within ``NS_DIST_TOL`` → the number of such edge pairs."""
+    from mdanalysis_mpi_tpu_torch.ops.host import minimum_image
+
+    (pt, dt), (pg, dg) = got, want
+    m = len(b)
+    kt, kg = pair_keys(pt, m), pair_keys(pg, m)
+    check(bool((np.diff(kt) > 0).all()),
+          f"{label}: torch pairs not in (i, j) order")
+    _, it, ig = np.intersect1d(kt, kg, assume_unique=True,
+                               return_indices=True)
+    only = np.setxor1d(kt, kg, assume_unique=True)
+    i, j = only // m, only % m
+    d = np.sqrt((minimum_image(b[j] - a[i], dims) ** 2).sum(-1))
+    edge = np.min([np.abs(d - c) for c in cutoffs], axis=0) if len(
+        only) else np.empty(0)
+    far = edge[edge > NS_EDGE]
+    check(len(far) == 0,
+          f"{label}: {len(far)} pairs differ away from the cutoff (largest "
+          f"distance from it {far.max() if len(far) else 0:.3g} Å)")
+    err = float(np.abs(dt[it] - dg[ig]).max()) if len(it) else 0.0
+    check(err <= NS_DIST_TOL,
+          f"{label}: common distances differ by {err:.3g} Å")
+    return len(only), err
+
+
+def cell_list_leg(card, label, a, b, dims, cutoff, min_cutoff=None,
+                  self_query=False):
+    """One capped query by ``engine='torch'`` (twice: a first call and a
+    repeat) and by ``engine='nsgrid'`` on the host, compared."""
+    import torch
+
+    from mdanalysis_mpi_tpu_torch.lib.distances import (capped_distance,
+                                                        self_capped_distance)
+    from mdanalysis_mpi_tpu_torch.ops import neighbors
+
+    def query(engine, **kw):
+        if self_query:
+            return self_capped_distance(a, cutoff, min_cutoff=min_cutoff,
+                                        box=dims, engine=engine, **kw)
+        return capped_distance(a, b, cutoff, min_cutoff=min_cutoff,
+                               box=dims, engine=engine, **kw)
+
+    _, n_cells, cap = neighbors.plan_query(a, b, cutoff, dims)
+    torch.cuda.reset_peak_memory_stats()
+    got, t_first = timed(lambda: query("torch", device=NS_DEVICE))
+    peak = torch.cuda.max_memory_allocated()
+    again, t_repeat = timed(lambda: query("torch", device=NS_DEVICE))
+    check(np.array_equal(got[0], again[0])
+          and np.array_equal(got[1], again[1]),
+          f"{label}: the repeat differs from the first call")
+    t0 = time.perf_counter()
+    want = query("nsgrid")
+    t_host = time.perf_counter() - t0
+    n_edge, err = compare_pairs(
+        label, got, want, a, b, dims,
+        [cutoff] if min_cutoff is None else [cutoff, min_cutoff])
+    cand = len(a) * 27 * cap
+    print(f"neighbours {label}: {len(a)} x {len(b)} atoms, cutoff {cutoff}"
+          f"{'' if min_cutoff is None else f' min_cutoff {min_cutoff}'} Å: "
+          f"K {len(got[0])} pairs (nsgrid {len(want[0])}), {n_edge} differ "
+          f"within {NS_EDGE} Å of a cutoff, common distances within "
+          f"{err:.3g} Å (limit {NS_DIST_TOL}); grid {tuple(n_cells)}, "
+          f"capacity {cap}, {cand} candidates ({cand * 8} bytes of int64 "
+          f"indices), peak {peak} bytes allocated; engine='torch' first "
+          f"{t_first:.3f} s, repeat {t_repeat:.3f} s; engine='nsgrid' "
+          f"{t_host:.3f} s on {card}")
+    return got
+
+
+def guess_bonds_leg(card, u):
+    """(b): guess_bonds by the torch cell list and by 'auto' → the
+    bonds; the bond lengths and the guessed angles against the plain
+    formula on the host."""
+    from mdanalysis_mpi_tpu_torch.core.topologyobjects import guess_angles
+
+    top = u.topology
+    got, t_torch = timed(lambda: u.atoms.guess_bonds(engine="torch",
+                                                     device=NS_DEVICE))
+    torch_bonds = top.bonds.copy()
+    top.bonds = None
+    t0 = time.perf_counter()
+    want = u.atoms.guess_bonds(engine="auto")
+    t_auto = time.perf_counter() - t0
+    check(np.array_equal(got, want) and np.array_equal(torch_bonds,
+                                                       top.bonds),
+          f"guess_bonds: torch {len(got)} bonds, auto {len(want)}")
+    same_res = top.resindices[want[:, 0]] == top.resindices[want[:, 1]]
+    is_o = top.names == "OW"
+    n_oh = int((same_res & (is_o[want[:, 0]] ^ is_o[want[:, 1]])).sum())
+    n_waters = top.n_residues
+    check(n_oh == 2 * n_waters,
+          f"guess_bonds: {n_oh} O-H bonds inside waters for {n_waters} "
+          "waters")
+    pos = u.trajectory.ts.positions.astype(np.float64)
+    box = np.asarray(u.trajectory.ts.dimensions[:3], np.float64)
+
+    def mi(d):
+        return d - box * np.round(d / box)
+
+    t0 = time.perf_counter()
+    lengths = u.bonds.values()
+    b = top.bonds
+    plain = np.sqrt((mi(pos[b[:, 1]] - pos[b[:, 0]]) ** 2).sum(-1))
+    e_len = float(np.abs(lengths - plain).max())
+    top.angles = guess_angles(b, top.n_atoms)
+    angles = u.angles.values()
+    t_values = time.perf_counter() - t0
+    ang = top.angles
+    v1 = mi(pos[ang[:, 0]] - pos[ang[:, 1]])
+    v2 = mi(pos[ang[:, 2]] - pos[ang[:, 1]])
+    cos = (v1 * v2).sum(-1) / np.sqrt((v1 ** 2).sum(-1) * (v2 ** 2).sum(-1))
+    e_ang = float(np.abs(angles - np.degrees(np.arccos(np.clip(
+        cos, -1, 1)))).max())
+    check(e_len <= 1e-9 and e_ang <= 1e-6,
+          f"bond values vs plain formula: lengths {e_len:.3g} Å, angles "
+          f"{e_ang:.3g} deg")
+    print(f"neighbours guess_bonds: {u.atoms.n_atoms} atoms, {len(got)} "
+          f"bonds ({n_oh} O-H inside waters), equal from engine='torch' "
+          f"({t_torch:.3f} s) and 'auto' ({t_auto:.3f} s); {len(ang)} "
+          f"guessed angles; values() vs the plain formula: lengths "
+          f"{e_len:.3g} Å, angles {e_ang:.3g} deg ({t_values:.3f} s) on "
+          f"{card}")
+    return len(got)
+
+
+def hbond_leg(card):
+    """(c): HydrogenBondAnalysis on its batch path on the card."""
+    import torch
+
+    from mdanalysis_mpi_tpu_torch.analysis import HydrogenBondAnalysis
+    from mdanalysis_mpi_tpu_torch.analysis.hbonds import _hbond_count_kernel
+    from mdanalysis_mpi_tpu_torch.device import resolve_device
+    from mdanalysis_mpi_tpu_torch.parallel.executors import (
+        DeviceBlockCache, TorchExecutor)
+    from mdanalysis_mpi_tpu_torch.testing import make_water_universe
+
+    u = make_water_universe(n_waters=HB_WATERS, box=HB_BOX,
+                            n_frames=HB_FRAMES, seed=0)
+    probe = HydrogenBondAnalysis(u)
+    probe._frame_indices = [0]
+    t0 = time.perf_counter()
+    probe._prepare()
+    t_prep = time.perf_counter() - t0
+    n_pairs = len(probe._h_idx) * len(probe._a_idx)
+    check(n_pairs <= HydrogenBondAnalysis.MAX_BATCH_PAIRS,
+          f"hbonds: {n_pairs} pairs over the batch limit")
+
+    # the batch function alone on one staged block, CUDA events
+    dev = resolve_device(NS_DEVICE)
+    params = tuple(p.to(dev) if isinstance(p, torch.Tensor) else p
+                   for p in probe._batch_params())
+    block = torch.as_tensor(u.trajectory.read_block(0, HB_BATCH)[0][
+        :, probe._idx]).to(dev)
+    boxes = torch.as_tensor(np.tile(u.trajectory.ts.dimensions,
+                                    (HB_BATCH, 1))).to(dev)
+    ones = torch.ones(HB_BATCH, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    fn_ms = sorted(event_ms(lambda: _hbond_count_kernel(
+        params, block, boxes, ones))[1] for _ in range(3))[1]
+    peak = torch.cuda.max_memory_allocated()
+    del params, block, boxes, ones
+
+    first, t_first = timed(lambda: torch.as_tensor(
+        HydrogenBondAnalysis(u).run(batch_size=HB_BATCH, device=NS_DEVICE,
+                                    scan_k=1).results.count))
+    check(first.shape == (HB_FRAMES,), f"hbonds: count {first.shape}")
+    # over one cache: a first run per block, a repeat eager at the
+    # group's first hit, a repeat captured as a CUDA graph at its second
+    # hit and replayed: all equal to the per-block run
+    exe = TorchExecutor(device=NS_DEVICE, batch_size=HB_BATCH,
+                        block_cache=DeviceBlockCache(), scan_k="auto")
+    g0 = graph_counts()
+    walls = []
+    for _ in range(3):
+        r, w = timed(lambda: HydrogenBondAnalysis(u).run(backend=exe))
+        walls.append(w)
+        check(torch.equal(torch.as_tensor(r.results.count), first),
+              "hbonds: a run on the card differs from the per-block run")
+    g = count_delta(g0, graph_counts())
+    check(g["graph_misses"] >= 1 and g["replays"] >= 1,
+          f"hbonds: no graph captured and replayed ({g})")
+    t0 = time.perf_counter()
+    serial = HydrogenBondAnalysis(u).run(
+        backend="serial", stop=HB_SERIAL_FRAMES).results.count
+    t_serial = time.perf_counter() - t0
+    diff = np.abs(first.numpy()[:HB_SERIAL_FRAMES] - serial)
+    check(bool((diff <= HB_REL_TOL * serial).all()),
+          f"hbonds vs serial: largest difference {diff.max()} bonds")
+    check(float(serial.sum()) > 0, "hbonds: the serial run found no bond")
+    print(f"neighbours hbonds: {HB_WATERS} waters ({u.atoms.n_atoms} atoms) "
+          f"x {HB_FRAMES} frames, {len(probe._h_idx)} H x "
+          f"{len(probe._a_idx)} acceptors = {n_pairs} candidate pairs, "
+          f"batch {HB_BATCH}: run {t_first:.3f} s ({HB_FRAMES / t_first:.1f}"
+          f" frames/s; the host's donor guess alone {t_prep:.3f} s; the "
+          f"batch function {fn_ms / HB_BATCH:.3f} ms a frame on one block, "
+          f"peak {peak} bytes allocated); {int(first.sum())} bonds in all; "
+          f"serial {HB_SERIAL_FRAMES} frames {t_serial:.3f} s "
+          f"({HB_SERIAL_FRAMES / t_serial:.1f} frames/s), largest per-frame "
+          f"difference {diff.max():g} bonds (limit {HB_REL_TOL:g} of the "
+          f"frame's count); scan_k='auto' over one cache: first / eager "
+          f"repeat / captured repeat {' / '.join(f'{w:.3f}' for w in walls)}"
+          f" s, graphs captured {g['graph_misses']}, replayed "
+          f"{g['replays']}, all equal on {card}")
+
+
+def bilayer(side):
+    """Two side x side sheets of headgroups, 8 Å apart in-plane and
+    30 Å across, jittered from seed 11 (tests/test_nsgrid.py's
+    TestConsumersRouted at scale)."""
+    from mdanalysis_mpi_tpu_torch import Universe
+    from mdanalysis_mpi_tpu_torch.core.topology import Topology
+    from mdanalysis_mpi_tpu_torch.io.memory import MemoryReader
+
+    rng = np.random.default_rng(11)
+    g = np.stack(np.meshgrid(np.arange(side), np.arange(side),
+                             indexing="ij"), -1).reshape(-1, 2) * 8.0
+    n = len(g)
+    pos = np.zeros((2 * n, 3), np.float32)
+    pos[:n, :2] = g
+    pos[n:, :2] = g
+    pos[n:, 2] = 30.0
+    pos += rng.normal(scale=0.4, size=pos.shape).astype(np.float32)
+    top = Topology(names=np.full(2 * n, "P"), resnames=np.full(2 * n, "POPC"),
+                   resids=np.arange(1, 2 * n + 1))
+    dims = np.array([side * 8.0, side * 8.0, side * 8.0, 90, 90, 90],
+                    np.float32)
+    return Universe(top, MemoryReader(pos[None], dimensions=dims)), n
+
+
+def host_legs(card, u_bonded):
+    """(d): LeafletFinder, the sparse contact matrix and make_whole."""
+    from mdanalysis_mpi_tpu_torch.analysis import LeafletFinder
+    from mdanalysis_mpi_tpu_torch.analysis.distances import contact_matrix
+    from mdanalysis_mpi_tpu_torch.lib.mdamath import make_whole
+    from mdanalysis_mpi_tpu_torch.testing import make_water_universe
+
+    ub, n = bilayer(LEAFLET_SIDE)
+    t0 = time.perf_counter()
+    lf = LeafletFinder(ub, "name P", cutoff=12.0, pbc=True)
+    t_lf = time.perf_counter() - t0
+    check(lf.sizes() == [n, n], f"LeafletFinder sizes {lf.sizes()[:4]}")
+    lft, t_lft = timed(lambda: LeafletFinder(
+        ub, "name P", cutoff=12.0, pbc=True, engine="torch",
+        device=NS_DEVICE))
+    check([g.indices.tolist() for g in lft.groups()]
+          == [g.indices.tolist() for g in lf.groups()],
+          "LeafletFinder: engine='torch' groups differ from 'auto'")
+    uw = make_water_universe(n_waters=HB_WATERS, box=HB_BOX, n_frames=1,
+                             seed=0)
+    x = uw.select_atoms("name OW").positions
+    box = uw.trajectory.ts.dimensions
+    t0 = time.perf_counter()
+    sp = contact_matrix(x, 6.0, returntype="sparse", box=box)
+    t_sp = time.perf_counter() - t0
+    check(np.array_equal(sp.toarray(), contact_matrix(x, 6.0, box=box)),
+          "contact_matrix: sparse differs from dense")
+    ts = u_bonded.trajectory.ts
+    lx = float(ts.dimensions[0])
+    ts.positions = ts.positions % lx
+    b = u_bonded.topology.bonds
+    broken = int((np.linalg.norm(ts.positions[b[:, 1]]
+                                 - ts.positions[b[:, 0]], axis=1) > 2.0).sum())
+    t0 = time.perf_counter()
+    whole = make_whole(u_bonded.atoms, inplace=False)
+    t_mw = time.perf_counter() - t0
+    longest = float(np.linalg.norm(whole[b[:, 1]] - whole[b[:, 0]],
+                                   axis=1).max())
+    check(broken > 0 and longest < 2.0,
+          f"make_whole: {broken} bonds broken by the wrap, longest after "
+          f"{longest:.3f} Å")
+    print(f"neighbours host paths: LeafletFinder {2 * n} lipids, cutoff 12 "
+          f"Å, pbc: 'auto' {t_lf:.3f} s, 'torch' {t_lft:.3f} s, sizes "
+          f"{lf.sizes()}; contact_matrix(sparse) {len(x)} oxygens at 6 Å: "
+          f"{sp.nnz} entries, equal to the dense map, {t_sp:.3f} s; "
+          f"make_whole {u_bonded.atoms.n_atoms} atoms: {broken} bonds broken "
+          f"by the wrap, longest after {longest:.3f} Å, {t_mw:.3f} s on "
+          f"{card}")
+
+
+def phase_neighbours(card):
+    """Phase 11: neighbour search and what it unblocks, at config 4's
+    width.  Launches neither hand kernel (its paths are torch ops)."""
+    from mdanalysis_mpi_tpu_torch.testing import make_water_universe
+
+    t_phase = time.perf_counter()
+    before = kernel_counts()
+    u = make_water_universe(n_waters=RDF_WATERS, box=RDF_BOX, n_frames=1,
+                            seed=0)
+    x = u.atoms.positions.astype(np.float64)
+    dims = np.asarray(u.trajectory.ts.dimensions, np.float64)
+    cell_list_leg(card, "self", x, x, dims, NS_CUTOFF, self_query=True)
+    ox = x[u.select_atoms("name OW").indices]
+    cell_list_leg(card, "cross", ox, x, dims, NS_CUTOFF,
+                  min_cutoff=NS_MIN_CUTOFF)
+    guess_bonds_leg(card, u)
+    hbond_leg(card)
+    host_legs(card, u)
+    check(kernel_counts() == before,
+          f"phase 11 launched a hand kernel: {before} -> {kernel_counts()}")
+    print(f"neighbour phase: {time.perf_counter() - t_phase:.1f} s on "
+          f"{card}")
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not os.path.isdir(os.path.join(HERE, "mdanalysis_mpi_tpu_torch")):
@@ -2275,6 +2637,7 @@ def main(argv=None):
         ph_launches += scan_ph
         del u, ow, u_e2e
         phase_configs(card)
+        phase_neighbours(card)
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", file=sys.stderr)
         return 1

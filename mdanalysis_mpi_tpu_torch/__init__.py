@@ -21,8 +21,11 @@ imports neither it nor JAX.  Layers, as in the JAX package:
   and the mpi4py ``MPIExecutor``.
 - :mod:`.analysis` — ``AverageStructure``, ``AlignTraj``, ``RMSF``,
   ``RMSD``, ``AlignedRMSF``, the RDF and distance analyses,
-  ``Contacts``, ``NucPairDist``/``WatsonCrickDist`` and
-  ``AtomicDistances``.
+  ``Contacts``, ``NucPairDist``/``WatsonCrickDist``,
+  ``AtomicDistances``, ``HydrogenBondAnalysis`` and ``LeafletFinder``.
+- :mod:`.lib` — distances and the capped-distance engines (the torch
+  cell list in :mod:`.ops.neighbors`), neighbour search, correlations;
+  :mod:`.transformations` — on-the-fly trajectory transformations.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (:mod:`.device`).

@@ -4,7 +4,9 @@
 and ``InterRDF_s`` (rdf), ``ContactMap`` and ``PairwiseDistances``
 (distances), ``Contacts`` (contacts), ``NucPairDist`` and
 ``WatsonCrickDist`` (nucleicacids), ``AtomicDistances``
-(atomicdistances), on the ``AnalysisBase`` template (base)."""
+(atomicdistances), ``HydrogenBondAnalysis`` (hbonds), ``LeafletFinder``
+and ``optimize_cutoff`` (leaflet), on the ``AnalysisBase`` template
+(base)."""
 
 from mdanalysis_mpi_tpu_torch.analysis.align import (AlignTraj,
                                                      AverageStructure,
@@ -16,6 +18,9 @@ from mdanalysis_mpi_tpu_torch.analysis.base import AnalysisBase, Results
 from mdanalysis_mpi_tpu_torch.analysis.contacts import Contacts
 from mdanalysis_mpi_tpu_torch.analysis.distances import (ContactMap,
                                                          PairwiseDistances)
+from mdanalysis_mpi_tpu_torch.analysis.hbonds import HydrogenBondAnalysis
+from mdanalysis_mpi_tpu_torch.analysis.leaflet import (LeafletFinder,
+                                                       optimize_cutoff)
 from mdanalysis_mpi_tpu_torch.analysis.nucleicacids import (NucPairDist,
                                                             WatsonCrickDist)
 from mdanalysis_mpi_tpu_torch.analysis.rdf import InterRDF, InterRDF_s
@@ -25,4 +30,5 @@ __all__ = ["AnalysisBase", "Results", "AverageStructure", "AlignTraj",
            "alignto", "rotation_matrix", "sequence_alignment", "RMSF",
            "RMSD", "rmsd", "AlignedRMSF", "InterRDF", "InterRDF_s",
            "ContactMap", "PairwiseDistances", "Contacts", "NucPairDist",
-           "WatsonCrickDist", "AtomicDistances"]
+           "WatsonCrickDist", "AtomicDistances", "HydrogenBondAnalysis",
+           "LeafletFinder", "optimize_cutoff"]

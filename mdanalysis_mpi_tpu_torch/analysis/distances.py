@@ -188,21 +188,31 @@ def dist(ag1, ag2, offset=0, box=None):
 
 def contact_matrix(coord, cutoff: float = 15.0, returntype: str = "numpy",
                    box=None):
-    """Dense boolean contact map of one coordinate set (upstream
-    ``analysis.distances.contact_matrix``): entry (i, j) is True when
-    ``d(i, j) < cutoff`` under the optional minimum-image box; the
-    diagonal is True (zero self-distance), as upstream.
-    ``returntype='sparse'`` needs the cell-list neighbour search, which
-    is not ported yet (ROADMAP A6)."""
+    """Dense or sparse boolean contact map of one coordinate set
+    (upstream ``analysis.distances.contact_matrix``): entry (i, j) is
+    True when ``d(i, j) < cutoff`` under the optional minimum-image
+    box; the diagonal is True (zero self-distance), as upstream."""
     x = np.asarray(coord, dtype=np.float64)
     if returntype == "numpy":
         d = host.distance_array(x, x, None if box is None else np.asarray(box))
         return d < cutoff
     if returntype == "sparse":
-        raise NotImplementedError(
-            "contact_matrix(returntype='sparse') needs the cell-list "
-            "neighbour search (lib.distances.self_capped_distance), which "
-            "is not ported yet (ROADMAP A6); use returntype='numpy'")
+        from scipy import sparse
+
+        from mdanalysis_mpi_tpu_torch.lib.distances import self_capped_distance
+
+        # full-precision coords and a STRICT d < cutoff filter, so the
+        # sparse and dense returntypes agree at the boundary
+        pairs, d = self_capped_distance(
+            x, cutoff, box=None if box is None else np.asarray(box),
+            return_distances=True)
+        pairs = pairs[d < cutoff]
+        n = len(x)
+        rows = np.concatenate([pairs[:, 0], pairs[:, 1], np.arange(n)])
+        cols = np.concatenate([pairs[:, 1], pairs[:, 0], np.arange(n)])
+        return sparse.coo_matrix(
+            (np.ones(len(rows), dtype=bool), (rows, cols)),
+            shape=(n, n)).tolil()
     raise ValueError(
         f"returntype must be 'numpy' or 'sparse', got {returntype!r}")
 

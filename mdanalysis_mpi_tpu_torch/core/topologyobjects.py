@@ -60,9 +60,23 @@ class TopologyGroup:
         kernel call: lengths (Å) for bonds, degrees for angles /
         dihedrals / impropers.  Minimum-image when the frame has a box.
         """
-        raise NotImplementedError(
-            "bond/angle/dihedral geometry needs lib/distances.py, which "
-            "the port carries from its distances slice on")
+        from mdanalysis_mpi_tpu_torch.lib import distances as libdist
+
+        ts = self._universe.trajectory.ts
+        pos = ts.positions.astype(np.float64)
+        box = ts.dimensions
+        if box is not None and not np.all(np.asarray(box)[:3] > 0):
+            box = None
+        cols = [pos[self.indices[:, k]]
+                for k in range(self.indices.shape[1])]
+        if self.kind == "bond":
+            return libdist.calc_bonds(cols[0], cols[1], box=box)
+        if self.kind == "angle":
+            return np.degrees(
+                libdist.calc_angles(cols[0], cols[1], cols[2], box=box))
+        return np.degrees(
+            libdist.calc_dihedrals(cols[0], cols[1], cols[2], cols[3],
+                                   box=box))
 
     # upstream aliases
     def bonds(self):

@@ -1,6 +1,11 @@
-"""Library helpers (``lib.mdamath``).  The JAX-backed distance and
-neighbour-search modules are ported in later slices."""
+"""Library helpers mirroring the upstream ``MDAnalysis.lib`` surface:
+``lib.distances`` (the capped-distance engines, among them the torch
+cell list), ``lib.nsgrid``, ``lib.neighborsearch``,
+``lib.correlations``, ``lib.transformations`` and ``lib.mdamath``."""
 
-from mdanalysis_mpi_tpu_torch.lib import mdamath
+from mdanalysis_mpi_tpu_torch.lib import (correlations, distances, mdamath,
+                                          neighborsearch, transformations)
+from mdanalysis_mpi_tpu_torch.lib.neighborsearch import AtomNeighborSearch
 
-__all__ = ["mdamath"]
+__all__ = ["correlations", "distances", "mdamath", "neighborsearch",
+           "transformations", "AtomNeighborSearch"]

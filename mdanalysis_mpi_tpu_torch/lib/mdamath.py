@@ -2,7 +2,7 @@
 
 Thin, NumPy-only veneers over the framework's own primitives (the box
 math lives in :mod:`mdanalysis_mpi_tpu_torch.core.box`, the dihedral
-convention in :mod:`mdanalysis_mpi_tpu_torch.ops.dihedrals`), so migrating
+convention in :func:`dihedral` below), so migrating
 code that imports ``lib.mdamath`` keeps working.
 """
 
@@ -41,7 +41,7 @@ def angle(a, b) -> float:
 
 def dihedral(ab, bc, cd) -> float:
     """Dihedral from three consecutive BOND VECTORS, radians, IUPAC sign
-    (the ops.dihedrals convention)."""
+    (the ``lib.distances.calc_dihedrals`` convention)."""
     b1 = np.asarray(ab, np.float64)
     b2 = np.asarray(bc, np.float64)
     b3 = np.asarray(cd, np.float64)
@@ -83,6 +83,21 @@ def make_whole(atomgroup, inplace: bool = True) -> np.ndarray:
     trajectory instead when every frame needs it (the bond tree is
     then built once, not per call).
     """
-    raise NotImplementedError(
-        "make_whole needs lib/distances.py and transformations.py, which "
-        "the port carries from later slices on")
+    from mdanalysis_mpi_tpu_torch.lib.distances import _valid_box_matrix
+    from mdanalysis_mpi_tpu_torch.transformations import unwrap
+
+    u = atomgroup.universe
+    ts = u.trajectory.ts
+    # strict validation: a partially degenerate box ([10, 0, 0, ...])
+    # would sail past an any(length > 0) check and write NaNs back
+    _valid_box_matrix(ts.dimensions, "make_whole")
+    t = unwrap(atomgroup)
+    if inplace:
+        t(ts)
+        return ts.positions[atomgroup.indices]
+    saved = ts.positions.copy()
+    try:
+        t(ts)
+        return ts.positions[atomgroup.indices].copy()
+    finally:
+        ts.positions = saved

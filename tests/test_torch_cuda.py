@@ -24,6 +24,11 @@ JAX, so it runs on a GPU machine that has no JAX:
   first edge above 0, box-less and infinite axes, NaN coordinates, a
   centred box and B atoms on both sides of the per-B-atom choice of
   the division-free form.
+
+Also the torch-op paths of neighbour search on the card (no hand
+kernel): the cell list against the host grid, ``self_pair_counts``, the
+default device resolving to ``cuda``, and the HBond batch path against
+the serial oracle and under a replayed graph.
 """
 
 import numpy as np
@@ -714,3 +719,106 @@ def test_cuda_warmup_then_run_builds_nothing_in_a_fresh_process():
     assert warm["programs"] > 0 and warm["warmup_builds"] == 1
     assert warm["run_builds"] == 0
     assert warm["rmsf"] == cold["rmsf"]
+
+
+# ---- neighbour search and what it unblocks (torch ops, no hand kernel) ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("box", [
+    np.array([24.0, 24.0, 24.0, 90.0, 90.0, 90.0]),
+    np.array([24.0, 26.0, 22.0, 75.0, 80.0, 95.0]), None],
+    ids=["ortho", "triclinic", "nobox"])
+def test_cuda_cell_list_matches_nsgrid(box):
+    """The torch cell list on the card: the pairs of the host grid, the
+    float64 distances within 5e-4 Å, a cross query with min_cutoff and
+    the overflow retry with capacity 1 included."""
+    from mdanalysis_mpi_tpu_torch.lib.distances import (
+        capped_distance, self_capped_distance)
+    from mdanalysis_mpi_tpu_torch.ops import neighbors
+
+    _card()
+    r = np.random.default_rng(31)
+    a = r.uniform(0, 24, size=(3000, 3))
+    b = r.uniform(0, 24, size=(2000, 3))
+    pg, dg = self_capped_distance(a, 3.5, box=box, engine="nsgrid")
+    pt, dt = self_capped_distance(a, 3.5, box=box, engine="torch")
+    np.testing.assert_array_equal(pt, pg)
+    np.testing.assert_allclose(dt, dg, rtol=0, atol=5e-4)
+    pg, dg = capped_distance(a, b, 4.0, min_cutoff=1.0, box=box,
+                             engine="nsgrid")
+    pt, dt = capped_distance(a, b, 4.0, min_cutoff=1.0, box=box,
+                             engine="torch", device="cuda")
+    np.testing.assert_array_equal(pt, pg)
+    np.testing.assert_allclose(dt, dg, rtol=0, atol=5e-4)
+    dims = None if box is None else box
+    po = neighbors.capped_distance(a, b, 4.0, min_cutoff=1.0, dims=dims,
+                                   return_distances=False, capacity=1)
+    np.testing.assert_array_equal(po, pg)
+
+
+@pytest.mark.cuda
+def test_cuda_self_pair_counts_and_default_device():
+    """``self_pair_counts`` on the card frame by frame against the host
+    grid; ``engine='torch'`` with no device resolves to ``cuda``."""
+    from mdanalysis_mpi_tpu_torch.device import resolve_device
+    from mdanalysis_mpi_tpu_torch.lib.distances import self_capped_distance
+    from mdanalysis_mpi_tpu_torch.ops import neighbors
+
+    dev = _card()
+    assert resolve_device(None).type == "cuda"
+    r = np.random.default_rng(32)
+    coords = r.uniform(0, 22, size=(6, 400, 3)).astype(np.float32)
+    boxes = np.tile(np.array([22.0, 22, 22, 90, 90, 90], np.float32), (6, 1))
+    counts, ovs = neighbors.self_pair_counts(
+        _t(coords).to(dev), _t(boxes).to(dev),
+        torch.ones(6, device=dev), 4.0, (5, 5, 5), 24)
+    assert counts.device.type == "cuda" and not bool(ovs.any())
+    host = [len(self_capped_distance(coords[f], 4.0, box=boxes[f],
+                                     engine="nsgrid")[0]) for f in range(6)]
+    np.testing.assert_array_equal(counts.cpu().numpy(),
+                                  np.asarray(host, np.float32))
+    # static shapes, no host wait, no copy from the host: one CUDA
+    # graph captures the batch and its replay gives the same counts
+    xs, bs, ms = (_t(coords).to(dev), _t(boxes).to(dev),
+                  torch.ones(6, device=dev))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        neighbors.self_pair_counts(xs, bs, ms, 4.0, (5, 5, 5), 24)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_counts, _ = neighbors.self_pair_counts(xs, bs, ms, 4.0, (5, 5, 5),
+                                                 24)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(g_counts, counts)
+
+
+@pytest.mark.cuda
+def test_cuda_hbonds_batch_matches_serial_and_graph_replay():
+    """HydrogenBondAnalysis on its batch path on the card (the default
+    device): counts within 0.1% of the float64 serial oracle's in each
+    frame, rounded up to whole bonds (float32 flips at the 3.0 Å and
+    150° edges), a second run equal, and scan-folded repeats (replayed
+    CUDA graphs) equal to the per-block run."""
+    from mdanalysis_mpi_tpu_torch.analysis import HydrogenBondAnalysis
+    from mdanalysis_mpi_tpu_torch.parallel.executors import (
+        DeviceBlockCache, TorchExecutor)
+    from mdanalysis_mpi_tpu_torch.testing import make_water_universe
+
+    _card()
+    u = make_water_universe(n_waters=216, n_frames=24, box=18.6, seed=4)
+    serial = np.asarray(HydrogenBondAnalysis(u).run(
+        backend="serial").results.count)
+    first = HydrogenBondAnalysis(u).run(batch_size=8)
+    again = HydrogenBondAnalysis(u).run(batch_size=8)
+    got = np.asarray(first.results.count)
+    assert (np.abs(got - serial) <= np.ceil(1e-3 * serial)).all()
+    assert serial.sum() > 0
+    np.testing.assert_array_equal(again.results.count, got)
+    exe = TorchExecutor(batch_size=8, block_cache=DeviceBlockCache(),
+                        scan_k="auto")
+    for _ in range(4):
+        np.testing.assert_array_equal(
+            HydrogenBondAnalysis(u).run(backend=exe).results.count, got)

@@ -397,8 +397,10 @@ def test_distance_helpers_match_jax(proteins):
     np.testing.assert_array_equal(
         adist.contact_matrix(x, cutoff=6.0, box=BOX),
         jax_adist.contact_matrix(x, cutoff=6.0, box=BOX))
-    with pytest.raises(NotImplementedError, match="A6"):
-        adist.contact_matrix(x, returntype="sparse")
+    np.testing.assert_array_equal(
+        adist.contact_matrix(x, 6.0, returntype="sparse", box=BOX).toarray(),
+        jax_adist.contact_matrix(x, 6.0, returntype="sparse",
+                                 box=BOX).toarray())
     got = adist.between(u.atoms, ca[:3], ca[3:6], 6.0)
     want = jax_adist.between(ju.atoms, jca[:3], jca[3:6], 6.0)
     np.testing.assert_array_equal(got.indices, want.indices)
