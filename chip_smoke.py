@@ -199,6 +199,46 @@ prints no ok line):
    and ``make_whole`` of (a)'s waters after wrapping them into the box
    (every bond under 2 Å again).  Every leg prints its wall times.
 
+12. The generic analysis API and the analyses of ROADMAP A8 (run after
+   phase 10, before phase 7; torch ops, neither hand kernel may
+   launch).  (a) On phase 4's system, float32 staging, B = 512:
+   ``AnalysisCollection(RMSF(heavy), AverageStructure(u, select='heavy',
+   select_only=True))`` and ``AnalysisCollection(RMSD(u, select='heavy'),
+   RadiusOfGyration(heavy))``, each against its children run alone
+   (with the host stage cache off): every child's partials
+   ``torch.equal`` to its solo run's, the collection staging 4 blocks
+   where the solo runs stage 8; then a first run and three repeats
+   over one ``DeviceBlockCache`` (``scan_k='auto'``), all equal, the
+   third replaying a captured graph.  Prints the collection's wall
+   against the sum of the solo walls.  (b) Config 1's protein
+   (``make_protein_universe(835, 1024, noise=0.3, seed=1)``, 4,175
+   atoms): RadiusOfGyration, Ramachandran, HELANAL (Cα) and PCA (Cα,
+   ``align=True``, 8 components: a 2,505 × 2,505 covariance) over 1,024
+   frames, batch 128; GNM (Cα) and DSSP over 256 frames, batch 32 (and
+   the host waits of one GNM run); BAT over 256 frames after
+   ``guess_bonds``, on the whole protein if its torsion tree builds,
+   else on its largest bonded fragment (printed); Janin of the JAX
+   tests' side-chain fixture widened to 64 residues and
+   PersistenceLength of their random-walk chains widened to 64 chains of
+   16 beads, 256 frames each.  Each run twice (the repeat bit-identical)
+   and held to ``backend='serial'`` over its first 64 frames at the JAX
+   package's tolerance: PCA variances within 1e-2 of the top variance
+   (benchmarks/suite.py:350), GNM eigenvalues within 1e-2 (:402), DSSP
+   agreement ≥ 0.98 (:447), the rest at their tests' ``atol``
+   (RadiusOfGyration 1e-5 relative, Ramachandran 0.15° and BAT 1e-4
+   modulo the period of the angle, HELANAL rises 1e-4 Å and twists 1e-3°
+   times sin(twist) — arccos amplifies a float32 cosine's rounding by
+   1/sin —, Janin 1e-3°, PersistenceLength 1e-5).  (c) Phase 5's water
+   box (32,768 waters, 64 frames, batch 16): EinsteinMSD of the oxygens
+   (FFT; 1e-3 relative + 1e-2 of the largest, tests/test_msd.py),
+   DensityAnalysis (delta 1 Å: the total exact, the counts equal to the
+   host's float32 binning, and the voxels in which they differ from
+   the serial float64 oracle's no more than the samples within 1e-4 of
+   a voxel edge) and LinearDensity (binsize 0.25 Å, TIP3P charges set
+   with ``add_TopologyAttr``: within 5e-2 of the serial oracle,
+   suite.py:394), each repeat bit-identical.  Every leg prints its wall
+   and frames/s; the phase prints its time.
+
 Phase 3 also holds the pair-histogram kernel (``ops/fused_distances.
 pair_histogram``, ``csrc/pair_histogram.cu``) against
 ``pair_histogram_plain`` on the card: the main shape (the first block of
@@ -322,6 +362,22 @@ NS_DEVICE = None
 PH_NAME = "pair_histogram"
 PH_SOURCE = "mdanalysis_mpi_tpu_torch/csrc/pair_histogram.cu"
 PH_REPLACES = "mdanalysis_mpi_tpu/ops/pallas_distances.py:164"
+
+# phase 12: the generic analysis API and the analyses of ROADMAP A8 (the
+# analyses are torch ops; neither hand kernel may launch)
+AN_DEVICE = "cuda"
+AN_RESIDUES = 835                    # BASELINE config 1's protein
+AN_FRAMES = 1024
+AN_SHORT = 256                       # GNM, DSSP, BAT, Janin, polymer
+AN_ORACLE = 64                       # frames held to the serial oracle
+AN_BATCH = 128
+AN_SHORT_BATCH = 32
+JANIN_RESIDUES = 64
+POLY_CHAINS = 64
+POLY_BEADS = 16
+DENSITY_DELTA = 1.0
+LINDENS_BINSIZE = 0.25
+TIP3P_CHARGES = (-0.834, 0.417, 0.417)
 
 
 class SmokeFailure(Exception):
@@ -2598,6 +2654,468 @@ def phase_neighbours(card):
           f"{card}")
 
 
+# ---------------------------------------------------------------- phase 12
+
+def an_kw(bs):
+    return dict(backend="torch", device=AN_DEVICE, batch_size=bs)
+
+
+def tree_leaves(tree):
+    if tree is None:
+        return []
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in tree_leaves(t)]
+    return [tree]
+
+
+def tree_equal(a, b):
+    """Leaf-for-leaf bit equality of two partials trees."""
+    import torch
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor)
+        else np.array_equal(np.asarray(x), np.asarray(y))
+        for x, y in zip(la, lb))
+
+
+def same(a, b):
+    """Bit equality of two host arrays (NaNs equal where they sit)."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype.kind == "f":
+        return np.array_equal(a, b, equal_nan=True)
+    return np.array_equal(a, b)
+
+
+class counting_stages:
+    """Count the blocks a run stages from ``u``'s reader
+    (``stage_block`` calls) with the host stage cache off, so every
+    pass stages its blocks anew: ``with counting_stages(u) as n:``,
+    then ``n[0]``."""
+
+    def __init__(self, u):
+        self.cls = type(u.trajectory)
+        self.n = [0]
+
+    def __enter__(self):
+        orig = self.cls.stage_block
+        n = self.n
+
+        def stage_block(reader, *a, **k):
+            n[0] += 1
+            return orig(reader, *a, **k)
+
+        self.orig = orig
+        self.env = os.environ.get("MDTPU_HOST_STAGE_CACHE_MB")
+        os.environ["MDTPU_HOST_STAGE_CACHE_MB"] = "0"
+        self.cls.stage_block = stage_block
+        return self.n
+
+    def __exit__(self, *exc):
+        self.cls.stage_block = self.orig
+        if self.env is None:
+            os.environ.pop("MDTPU_HOST_STAGE_CACHE_MB", None)
+        else:
+            os.environ["MDTPU_HOST_STAGE_CACHE_MB"] = self.env
+        return False
+
+
+def collection_leg(card, u, label, makers):
+    """Phase 12 (a): ``AnalysisCollection`` of ``makers``' analyses on
+    phase 4's system at float32 staging, B = 512, against each child run
+    alone: every child's partials equal to its solo run's (the union is
+    each child's own selection, so the ops are the same), the
+    collection staging each block once (4, where the solo runs stage
+    8), then a first run and three repeats over one block cache, all
+    equal, the third replaying a captured graph."""
+    from mdanalysis_mpi_tpu_torch.analysis import AnalysisCollection
+    from mdanalysis_mpi_tpu_torch.parallel.executors import DeviceBlockCache
+
+    kw = an_kw(E2E_BATCH)
+    n_blocks = -(-E2E_FRAMES // E2E_BATCH)
+    names = [type(m()).__name__ for m in makers]
+    solos, solo_walls = [], []
+    with counting_stages(u) as staged:
+        for make in makers:
+            a, wall = timed(lambda: make().run(**kw))
+            solos.append(a)
+            solo_walls.append(wall)
+        n_solo, staged[0] = staged[0], 0
+        coll, wall = timed(lambda: AnalysisCollection(
+            *[m() for m in makers]).run(**kw))
+        n_coll = staged[0]
+    check(n_coll == n_blocks and n_solo == n_blocks * len(makers),
+          f"collection {label}: staged {n_coll} blocks (solo runs "
+          f"{n_solo}), expected {n_blocks} (solo {n_blocks * len(makers)})")
+    for name, child, solo in zip(names, coll.analyses, solos):
+        check(tree_equal(child._last_total, solo._last_total),
+              f"collection {label}: {name} differs from its solo run")
+    solo_text = " + ".join(f"{n} {w:.3f} s" for n, w in zip(names,
+                                                             solo_walls))
+    print(f"collection {label} {names}: {E2E_FRAMES} frames x "
+          f"{len(u.select_atoms('heavy'))} atoms, float32, B={E2E_BATCH}: "
+          f"wall {wall:.3f} s ({E2E_FRAMES / wall:.1f} frames/s), "
+          f"{n_coll} blocks staged; solo {solo_text} = "
+          f"{sum(solo_walls):.3f} s, {n_solo} blocks staged; every child "
+          f"equal to its solo run on {card}")
+    cache = DeviceBlockCache()
+    for leg in SCAN_LEGS:
+        g0 = graph_counts()
+        c, w = timed(lambda: AnalysisCollection(*[m() for m in makers]).run(
+            block_cache=cache, scan_k="auto", **kw))
+        g = count_delta(g0, graph_counts())
+        check(all(tree_equal(x._last_total, y._last_total)
+                  for x, y in zip(c.analyses, coll.analyses)),
+              f"collection {label}: cached {leg} not equal to the first run")
+        print(f"collection {label} over one block cache, {leg}: wall "
+              f"{w:.3f} s ({E2E_FRAMES / w:.1f} frames/s), graphs captured "
+              f"{g['graph_misses']}, replayed {g['replays']}, equal")
+    check(g["replays"] > 0 and g["graph_misses"] == 0,
+          f"collection {label}: the third repeat replayed no captured "
+          f"graph ({g})")
+    del cache
+
+
+def an_leg(card, label, make, n_frames, bs, keys, compare, tol, series=True):
+    """One analysis on the card over ``n_frames`` frames, twice (the
+    repeat bit-identical in every key of ``keys``), held to the serial
+    float64 oracle over the first ``AN_ORACLE`` frames: the first rows
+    of the device run for a time series, a device run over the same
+    frames for a reduction.  ``compare(device, serial)`` → (error text,
+    within ``tol``)."""
+    kw = an_kw(bs)
+    t_leg = time.perf_counter()
+
+    def run(stop):
+        a = make().run(stop=stop, **kw)
+        return a, {k: np.asarray(getattr(a.results, k)) for k in keys}
+
+    (a, got), wall = timed(lambda: run(n_frames))
+    (_, again), wall2 = timed(lambda: run(n_frames))
+    for k in keys:
+        check(same(got[k], again[k]),
+              f"{label}: repeat not bit-identical in {k}")
+    n_o = min(AN_ORACLE, n_frames)
+    t_ser = time.perf_counter()
+    ser = make().run(stop=n_o, backend="serial")
+    want = {k: np.asarray(getattr(ser.results, k)) for k in keys}
+    t_ser = time.perf_counter() - t_ser
+    dev = ({k: got[k][:n_o] for k in keys} if series
+           else run(n_o)[1])
+    err, ok = compare(dev, want)
+    print(f"analyses {label}: {n_frames} frames, batch {bs}: wall "
+          f"{wall:.3f} s ({n_frames / wall:.1f} frames/s, the results read "
+          f"back), repeat {wall2:.3f} s bit-identical; vs serial float64 "
+          f"over {n_o} frames ({t_ser:.2f} s): {err} (limit {tol}); leg "
+          f"{time.perf_counter() - t_leg:.2f} s on {card}")
+    check(ok, f"{label}: {err} against the serial oracle (limit {tol})")
+    return a
+
+
+def wrapped(d, period):
+    """|difference| of angles modulo ``period``."""
+    d = np.abs(np.asarray(d, np.float64))
+    return np.minimum(d, period - d % period)
+
+
+def max_abs(key, tol, period=None, rel=False):
+    """A compare of ``key``: the largest |device − serial| (relative to
+    the serial value if ``rel``; modulo ``period`` for angles)."""
+    def compare(dev, want):
+        d = np.asarray(dev[key], np.float64) - want[key]
+        if rel:
+            d = d / want[key]
+        d = wrapped(d, period) if period else np.abs(d)
+        return f"max |d {key}| {d.max():.3g}", d.max() <= tol
+
+    return compare
+
+
+def compare_helanal(dev, want):
+    """Rises within 1e-4 Å; twists within 1e-3° scaled by sin(twist):
+    arccos amplifies a float32 cosine's rounding by 1/sin, so a twist
+    near 0° or 180° is held in cosine space (|d twist|·sin(twist))."""
+    dr = np.abs(dev["local_rises"] - want["local_rises"]).max()
+    tw = want["local_twists"]
+    dt = np.abs(dev["local_twists"] - tw)
+    dc = (dt * np.sin(np.radians(tw))).max()
+    return (f"max |d rise| {dr:.3g} A, max |d twist|·sin(twist) {dc:.3g} "
+            f"deg (max |d twist| {dt.max():.3g} deg)",
+            dr <= 1e-4 and dc <= 1e-3)
+
+
+def compare_pca(dev, want):
+    top = float(want["variance"][0])
+    d = np.abs(dev["variance"] - want["variance"]).max()
+    return (f"max |d variance| {d:.3g} of top variance {top:.4g} "
+            f"({d / top:.3g} of it)", d <= 1e-2 * top)
+
+
+def compare_dssp(dev, want):
+    agree = float((dev["dssp"] == want["dssp"]).mean())
+    return f"agreement {agree:.5f}", agree >= 0.98
+
+
+def compare_bat(n_quads):
+    """BAT vectors within 1e-4 (tests/test_bat.py), the periodic columns
+    (φ, ω and the torsions, in radians) modulo 2π."""
+    def compare(dev, want):
+        d = np.abs(np.asarray(dev["bat"], np.float64) - want["bat"])
+        for cols in ([3], [5], slice(9 + 2 * n_quads, None)):
+            d[:, cols] = wrapped(d[:, cols], 2 * np.pi)
+        return f"max |d bat| {d.max():.3g}", d.max() <= 1e-4
+
+    return compare
+
+
+def compare_persistence(dev, want):
+    d = np.abs(dev["bond_autocorrelation"]
+               - want["bond_autocorrelation"]).max()
+    dl = abs(float(dev["lb"]) / float(want["lb"]) - 1.0)
+    return (f"max |d C(n)| {d:.3g}, lb {dl:.3g} relative",
+            d <= 1e-5 and dl <= 1e-5)
+
+
+def make_janin_universe(n_res, n_frames, seed):
+    """The JAX tests' Janin fixture (tests/test_dihedrals.py: residues
+    with N, CA, CB, CG, CD and χ₁ set by placing CG) widened to
+    ``n_res`` residues with χ₁ drawn per residue and 0.05 Å of noise
+    per frame."""
+    from mdanalysis_mpi_tpu_torch import Universe
+    from mdanalysis_mpi_tpu_torch.core.topology import Topology
+    from mdanalysis_mpi_tpu_torch.io.memory import MemoryReader
+
+    rng = np.random.default_rng(seed)
+    coords = []
+    for i in range(n_res):
+        phi = np.radians(rng.uniform(-180.0, 180.0))
+        n = np.array([8.0 * i, 0.0, 0.0])
+        ca = n + [1.5, 0.0, 0.0]
+        cb = ca + [0.0, 1.5, 0.0]
+        cg = cb + 1.5 * np.array([-np.cos(phi), 0.0, np.sin(phi)])
+        cd = cg + [0.0, 1.5, 0.0]
+        coords += [n, ca, cb, cg, cd]
+    base = np.asarray(coords, np.float32)
+    frames = base[None] + rng.normal(
+        scale=0.05, size=(n_frames,) + base.shape).astype(np.float32)
+    top = Topology(names=np.tile(["N", "CA", "CB", "CG", "CD"], n_res),
+                   resnames=np.full(5 * n_res, "LYS"),
+                   resids=np.repeat(np.arange(1, n_res + 1), 5))
+    return Universe(top, MemoryReader(frames))
+
+
+def make_chains_universe(n_chains, beads, n_frames, seed):
+    """The JAX tests' multi-chain fixture (tests/test_polymer.py: random
+    walks of unit-normal steps) widened to ``n_chains`` chains."""
+    from mdanalysis_mpi_tpu_torch import Universe
+    from mdanalysis_mpi_tpu_torch.core.topology import Topology
+    from mdanalysis_mpi_tpu_torch.io.memory import MemoryReader
+
+    rng = np.random.default_rng(seed)
+    n = n_chains * beads
+    pos = np.cumsum(rng.normal(scale=1.0, size=(n_frames, n, 3)), axis=1)
+    top = Topology(names=np.full(n, "C"), resnames=np.full(n, "POL"),
+                   resids=np.arange(1, n + 1))
+    u = Universe(top, MemoryReader(pos.astype(np.float32)))
+    return u, [u.atoms[i * beads:(i + 1) * beads] for i in range(n_chains)]
+
+
+def protein_legs(card):
+    """Phase 12 (b): the protein analyses at config 1's width."""
+    from mdanalysis_mpi_tpu_torch.analysis import (
+        BAT, DSSP, HELANAL, PCA, GNMAnalysis, Janin, PersistenceLength,
+        RadiusOfGyration, Ramachandran)
+    from mdanalysis_mpi_tpu_torch.testing import make_protein_universe
+
+    t0 = time.perf_counter()
+    u = make_protein_universe(n_residues=AN_RESIDUES, n_frames=AN_FRAMES,
+                              noise=0.3, seed=1)
+    prot = u.select_atoms("protein")
+    n_ca = len(u.select_atoms("name CA"))
+    print(f"analyses: protein of {u.atoms.n_atoms} atoms ({AN_RESIDUES} "
+          f"residues) x {AN_FRAMES} frames, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    an_leg(card, "RadiusOfGyration(protein)", lambda: RadiusOfGyration(prot),
+           AN_FRAMES, AN_BATCH, ("rgyr",), max_abs("rgyr", 1e-5, rel=True),
+           "1e-5 relative")
+    an_leg(card, "Ramachandran(protein)", lambda: Ramachandran(prot),
+           AN_FRAMES, AN_BATCH, ("angles",),
+           max_abs("angles", 0.15, period=360.0), "0.15 deg")
+    an_leg(card, "HELANAL(name CA)", lambda: HELANAL(u, select="name CA"),
+           AN_FRAMES, AN_BATCH, ("local_twists", "local_rises"),
+           compare_helanal, "1e-4 A, 1e-3 deg")
+    an_leg(card, f"PCA(name CA, align=True, n_components=8): "
+           f"{3 * n_ca}x{3 * n_ca} covariance",
+           lambda: PCA(u, select="name CA", align=True, n_components=8),
+           AN_FRAMES, AN_BATCH, ("variance", "p_components"), compare_pca,
+           "1e-2 of the top variance", series=False)
+    gnm = an_leg(card, "GNMAnalysis(name CA)",
+                 lambda: GNMAnalysis(u, select="name CA"), AN_SHORT,
+                 AN_SHORT_BATCH, ("eigenvalues", "eigenvectors"),
+                 max_abs("eigenvalues", 1e-2), "1e-2")
+    _, base, _ = host_syncs(lambda: None)
+    _, waits, _ = host_syncs(lambda: gnm.run(
+        stop=AN_SHORT, **an_kw(AN_SHORT_BATCH)))
+    print(f"analyses GNMAnalysis: one {AN_SHORT}-frame run "
+          f"({AN_SHORT // AN_SHORT_BATCH} batches) waits on the card "
+          f"{own_waits(waits, base)} times of its own ({waits}; the "
+          f"batched eigh checks its solver status on the host)")
+    an_leg(card, "DSSP(protein)", lambda: DSSP(u), AN_SHORT, AN_SHORT_BATCH,
+           ("dssp",), compare_dssp, "agreement >= 0.98")
+    t0 = time.perf_counter()
+    u.atoms.guess_bonds()
+    try:
+        target, which = BAT(u.atoms)._ag, "the whole protein"
+    except ValueError as exc:
+        frag = max(u.atoms.fragments, key=lambda f: f.n_atoms)
+        target = frag
+        which = (f"its largest bonded fragment ({frag.n_atoms} atoms; the "
+                 f"whole protein: {exc})")
+    n_quads = len(BAT(target)._quads_global)
+    print(f"analyses BAT: guess_bonds and the torsion tree in "
+          f"{time.perf_counter() - t0:.2f} s; BAT over {which}")
+    an_leg(card, f"BAT({target.n_atoms} atoms)", lambda: BAT(target),
+           AN_SHORT, AN_BATCH, ("bat",), compare_bat(n_quads),
+           "1e-4, angles modulo 2 pi")
+    uj = make_janin_universe(JANIN_RESIDUES, AN_SHORT, seed=2)
+    an_leg(card, f"Janin({JANIN_RESIDUES} residues)", lambda: Janin(uj.atoms),
+           AN_SHORT, AN_BATCH, ("angles",),
+           max_abs("angles", 1e-3, period=360.0), "1e-3 deg")
+    _, chains = make_chains_universe(POLY_CHAINS, POLY_BEADS, AN_SHORT,
+                                     seed=41)
+    an_leg(card, f"PersistenceLength({POLY_CHAINS} chains of {POLY_BEADS})",
+           lambda: PersistenceLength(chains), AN_SHORT, AN_BATCH,
+           ("bond_autocorrelation", "lb"), compare_persistence,
+           "1e-5, lb 1e-5 relative", series=False)
+
+
+def voxel_counts(frames, origin, inv_delta, shape, dtype):
+    """Host twin of DensityAnalysis' counts, in ``dtype`` arithmetic:
+    (per-voxel counts + the out-of-grid count, samples within 1e-4 of a
+    voxel edge in float64)."""
+    nx, ny, nz = shape
+    counts = np.zeros(nx * ny * nz + 1, np.int64)
+    edge = 0
+    o, s = origin.astype(dtype), dtype(inv_delta)
+    for x in frames:
+        f = (x.astype(dtype) - o) * s
+        ijk = np.floor(f)
+        inside = ((ijk >= 0).all(1) & (ijk[:, 0] < nx) & (ijk[:, 1] < ny)
+                  & (ijk[:, 2] < nz))
+        k = ijk.astype(np.int64)
+        flat = np.where(inside, k[:, 0] * ny * nz + k[:, 1] * nz + k[:, 2],
+                        nx * ny * nz)
+        counts += np.bincount(flat, minlength=len(counts))
+        f64 = (x.astype(np.float64) - origin) * inv_delta
+        edge += int((np.abs(f64 - np.round(f64)) < 1e-4).any(1).sum())
+    return counts, edge
+
+
+def solvent_legs(card, uw, ow):
+    """Phase 12 (c): EinsteinMSD, DensityAnalysis and LinearDensity of
+    phase 5's water box."""
+    import torch
+
+    from mdanalysis_mpi_tpu_torch.analysis import (DensityAnalysis,
+                                                   EinsteinMSD,
+                                                   LinearDensity)
+
+    n_f, n_ow = uw.trajectory.n_frames, ow.n_atoms
+
+    def compare_msd(dev, want):
+        w = want["timeseries"]
+        d = np.abs(dev["timeseries"] - w)
+        lim = 1e-3 * np.abs(w) + 1e-2 * float(w.max())
+        return f"max |d msd| {d.max():.3g} A^2", bool((d <= lim).all())
+
+    an_leg(card, f"EinsteinMSD(name OW, fft): {n_ow} waters",
+           lambda: EinsteinMSD(uw, select="name OW"), n_f, RDF_BATCH,
+           ("timeseries", "msds_by_particle"), compare_msd,
+           "1e-3 relative + 1e-2 of the largest", series=False)
+
+    kw = an_kw(RDF_BATCH)
+    runs = []
+    for _ in range(2):
+        a, wall = timed(lambda: DensityAnalysis(ow, delta=DENSITY_DELTA)
+                        .run(**kw))
+        grid = np.asarray(a.results.grid)
+        runs.append((a, wall, grid))
+    (a, wall, grid), (b, wall2, grid2) = runs
+    check(torch.equal(a._last_total[1], b._last_total[1]) and same(grid, grid2),
+          "DensityAnalysis: repeat not bit-identical")
+    dev = a._last_total[1].cpu().numpy().astype(np.int64)
+    s = DensityAnalysis(ow, delta=DENSITY_DELTA).run(backend="serial")
+    ser = np.rint(np.asarray(s._last_total[1])).astype(np.int64)
+    frames = uw.trajectory.read_block(0, n_f, sel=ow.indices)[0]
+    f32, edge = voxel_counts(frames, a._origin, 1.0 / a._delta, a._shape,
+                             np.float32)
+    flips = int(np.abs(dev - ser).sum()) // 2
+    total = n_f * n_ow
+    print(f"analyses DensityAnalysis(name OW, delta={DENSITY_DELTA}): grid "
+          f"{a._shape}, {n_f} frames, batch {RDF_BATCH}: wall {wall:.3f} s "
+          f"({n_f / wall:.1f} frames/s), repeat {wall2:.3f} s bit-identical; "
+          f"total {int(dev.sum())} of {total} samples (serial "
+          f"{int(ser.sum())}), {flips} samples in another voxel than the "
+          f"serial float64 oracle's ({edge} lie within 1e-4 of a voxel "
+          f"edge), counts equal to the host's float32 binning: "
+          f"{np.array_equal(dev, f32)} on {card}")
+    check(int(dev.sum()) == total and int(ser.sum()) == total,
+          f"DensityAnalysis: totals {int(dev.sum())}, {int(ser.sum())} of "
+          f"{total}")
+    check(np.array_equal(dev, f32),
+          "DensityAnalysis: counts differ from the host float32 binning")
+    check(flips <= edge, f"DensityAnalysis: {flips} voxel flips against "
+          f"the serial oracle, only {edge} samples near an edge")
+
+    uw.add_TopologyAttr("charges", np.tile(TIP3P_CHARGES,
+                                           uw.atoms.n_atoms // 3))
+    runs = []
+    for _ in range(2):
+        a, wall = timed(lambda: LinearDensity(ow, binsize=LINDENS_BINSIZE)
+                        .run(**kw).results.materialize())
+        runs.append((a, wall))
+    (a, wall), (b, wall2) = runs
+    a = runs[0][0]
+    keys = ("mass_density", "mass_density_stddev", "charge_density",
+            "charge_density_stddev")
+    check(all(same(getattr(a[ax], k), getattr(b[ax], k))
+              for ax in "xyz" for k in keys),
+          "LinearDensity: repeat not bit-identical")
+    s = LinearDensity(ow, binsize=LINDENS_BINSIZE).run(
+        backend="serial").results
+    err = max(float(np.abs(getattr(a[ax], k) - getattr(s[ax], k)).max())
+              for ax in "xyz" for k in ("mass_density", "charge_density"))
+    print(f"analyses LinearDensity(name OW, binsize={LINDENS_BINSIZE}, "
+          f"TIP3P charges): {a['nbins']} bins, {n_f} frames, batch "
+          f"{RDF_BATCH}: wall {wall:.3f} s ({n_f / wall:.1f} frames/s), "
+          f"repeat {wall2:.3f} s bit-identical; vs serial float64: max |d| "
+          f"{err:.3g} (limit 5e-2) on {card}")
+    check(err <= 5e-2, f"LinearDensity: {err:.3g} against the serial oracle")
+
+
+def phase_analyses(card, u_e2e, uw, ow):
+    """Phase 12: the generic analysis API and the analyses of ROADMAP A8
+    on the card.  Launches neither hand kernel (torch ops)."""
+    from mdanalysis_mpi_tpu_torch.analysis import (RMSD, RMSF,
+                                                   AverageStructure,
+                                                   RadiusOfGyration)
+
+    t_phase = time.perf_counter()
+    before = kernel_counts()
+    heavy = u_e2e.select_atoms("heavy")
+    collection_leg(card, u_e2e, "of reductions", [
+        lambda: RMSF(heavy),
+        lambda: AverageStructure(u_e2e, select="heavy", select_only=True)])
+    collection_leg(card, u_e2e, "of series", [
+        lambda: RMSD(u_e2e, select="heavy"),
+        lambda: RadiusOfGyration(heavy)])
+    protein_legs(card)
+    solvent_legs(card, uw, ow)
+    check(kernel_counts() == before,
+          f"phase 12 launched a hand kernel: {before} -> {kernel_counts()}")
+    print(f"analysis phase: {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not os.path.isdir(os.path.join(HERE, "mdanalysis_mpi_tpu_torch")):
@@ -2635,6 +3153,7 @@ def main(argv=None):
         scan_launches, scan_ph = phase_scan(card, u_e2e, u, ow)
         launches += scan_launches
         ph_launches += scan_ph
+        phase_analyses(card, u_e2e, u, ow)
         del u, ow, u_e2e
         phase_configs(card)
         phase_neighbours(card)

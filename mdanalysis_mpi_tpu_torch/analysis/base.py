@@ -33,6 +33,8 @@ implement:
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -214,6 +216,14 @@ class AnalysisBase:
     # backend
     _mesh_only = False
 
+    # the backend run() takes when the caller names none
+    _default_backend = "torch"
+
+    # True when the batch function waits on the device from the host
+    # (GNM's batched eigh checks its solver status): no CUDA graph can
+    # capture it, so its cached groups always run eagerly
+    _host_waits_in_batch = False
+
     def __init__(self, universe, verbose: bool = False):
         self._universe = universe
         self._verbose = verbose
@@ -305,10 +315,12 @@ class AnalysisBase:
         return [self]
 
     def run(self, start=None, stop=None, step=None, frames=None,
-            backend: str = "torch", batch_size: int | None = None,
+            backend: str | None = None, batch_size: int | None = None,
             resilient=False, **executor_kwargs):
         """Iterate frames [start:stop:step] — or an explicit ``frames``
-        index list — on the chosen backend: ``"torch"`` (the default:
+        index list — on the chosen backend (None: the class's
+        ``_default_backend``): ``"torch"`` (the default but for
+        :class:`AnalysisFromFunction`:
         single-device batches on ``cuda`` unless ``device="cpu"`` is
         passed; executor keywords such as ``device``, ``transfer_dtype``,
         ``block_cache``, ``scan_k`` and ``prestage`` pass through),
@@ -326,6 +338,8 @@ class AnalysisBase:
         :mod:`~mdanalysis_mpi_tpu_torch.utils.checkpoint`, so the same
         call after a crash resumes from the last folded partials.  The
         run's report lands in ``results.reliability``."""
+        if backend is None:
+            backend = self._default_backend
         if resilient:
             from mdanalysis_mpi_tpu_torch.reliability.policy import (
                 ReliabilityPolicy, run_resilient)
@@ -576,3 +590,348 @@ def _fold_stream_partials(analysis, total, part):
         return np.concatenate([np.asarray(a), np.asarray(b)])
 
     return cat(total, part)
+
+
+def real_frames(x, mask, n: int):
+    """The rows of a per-frame series whose ``mask`` is set, in frame
+    order.  On a tensor this reads nothing back from the device: a
+    stable sort of the mask puts the ``n`` real rows (``n`` known on
+    the host) first, and the gather keeps them."""
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)[np.asarray(mask) > 0.5]
+    order = torch.argsort((mask <= 0.5).to(torch.int32), stable=True)
+    return x[order[:n]]
+
+
+def series_of(x, mask, n: int, dtype=np.float64):
+    """A :class:`Deferred` of :func:`real_frames` as a host array of
+    ``dtype`` (the frames are picked on the device; the copy to the
+    host waits for the first read)."""
+    return Deferred(lambda: np.asarray(to_numpy(real_frames(x, mask, n)),
+                                       dtype))
+
+
+class AnalysisFromFunction(AnalysisBase):
+    """Wrap a per-frame function into an analysis (upstream
+    ``analysis.base.AnalysisFromFunction``)::
+
+        rg = AnalysisFromFunction(
+            lambda ag: ag.radius_of_gyration(), ca).run()
+        rg.results.timeseries          # (n_frames, ...) stacked values
+
+    ``function(*args, **kwargs)`` is called once per frame with the
+    trajectory positioned there (upstream contract: AtomGroup arguments
+    read their universe's CURRENT frame).  Arbitrary Python has no batch
+    function: ``run()`` takes the serial backend when none is named,
+    and a batch backend raises; write a subclass with a batch function
+    when the math should run on the device.
+    """
+
+    # the per-frame function reads its AtomGroup arguments at call time,
+    # so an UpdatingAtomGroup's re-evaluation is seen every frame
+    _accepts_updating_groups = True
+
+    _default_backend = "serial"
+
+    def __init__(self, function, *args, verbose: bool = False, **kwargs):
+        from mdanalysis_mpi_tpu_torch.core.groups import AtomGroup
+        from mdanalysis_mpi_tpu_torch.core.universe import Universe
+
+        u = None
+        for a in args:
+            if isinstance(a, AtomGroup):
+                u = a.universe
+                break
+            if isinstance(a, Universe):
+                u = a
+                break
+        if u is None:
+            raise ValueError(
+                "pass at least one AtomGroup or Universe argument so the "
+                "analysis knows which trajectory to iterate")
+        super().__init__(u, verbose)
+        self._function = function
+        self._args = args
+        self._kwargs = kwargs
+
+    def _prepare(self):
+        self._values = []
+
+    def _single_frame(self, ts):
+        self._values.append(self._function(*self._args, **self._kwargs))
+
+    def _serial_summary(self):
+        return self._values
+
+    def _conclude(self, values):
+        self.results.frames = np.asarray(self._frame_indices)
+        self.results.timeseries = (
+            np.stack([np.asarray(v) for v in values]) if values
+            else np.empty(0))
+
+
+def analysis_class(function):
+    """Decorator turning a per-frame function into an Analysis class
+    (upstream ``analysis.base.analysis_class``)::
+
+        @analysis_class
+        def com_z(ag):
+            return ag.center_of_mass()[2]
+
+        com_z(ca).run().results.timeseries
+    """
+    import functools
+
+    class _Wrapped(AnalysisFromFunction):
+        @functools.wraps(function, updated=())
+        def __init__(self, *args, **kwargs):
+            super().__init__(function, *args, **kwargs)
+
+    _Wrapped.__name__ = getattr(function, "__name__", "AnalysisFromFunction")
+    return _Wrapped
+
+
+# ---- AnalysisCollection (upstream analysis.base.AnalysisCollection) ----
+
+def needs_solo_on_batch(analysis) -> bool:
+    """True for analyses that cannot consume a collection's union
+    block on the batch backends: ring (atom-sharded) functions — custom
+    shard specs — and mesh-only analyses.  The one definition of
+    batch-path collection ineligibility, for :class:`AnalysisCollection`
+    and for a request coalescer."""
+    return (getattr(analysis, "_mesh_only", False)
+            or type(analysis)._batch_specs is not AnalysisBase._batch_specs)
+
+
+class UncoalescableAnalysisError(ValueError):
+    """An analysis whose algorithm lives in a ``run()`` override
+    (AlignedRMSF, PCA, AlignTraj, ...) cannot be driven through a
+    collection's per-frame/batch hooks — the collection never calls the
+    override.
+
+    A typed subclass of ``ValueError`` so a request coalescer can route
+    on it: a job carrying such an analysis is submitted per-job
+    (non-coalesced, its own solo pass) instead of failing the whole
+    merged batch.  ``analysis`` carries the offending instance."""
+
+    def __init__(self, message, analysis=None):
+        super().__init__(message)
+        self.analysis = analysis
+
+
+@functools.lru_cache(maxsize=None)
+def _collection_kernel_for(fns):
+    """One batch function running every child's on its slice of the
+    staged union block.  ``params`` is a tuple of ``(slots,
+    child_params)``: ``slots`` gathers the child's selection out of the
+    union on the device (None: the child takes the block as it is).
+    One identity per tuple of child functions, so a repeated collection
+    finds its cached group programs (CUDA graphs) again."""
+
+    def kernel(params, batch, boxes, mask):
+        outs = []
+        for fn, (slots, p) in zip(fns, params):
+            b = batch if slots is None else batch[:, slots]
+            outs.append(fn(p, b, boxes, mask))
+        return tuple(outs)
+
+    kernel.__name__ = "collection_" + "_".join(f.__name__ for f in fns)
+    return kernel
+
+
+@functools.lru_cache(maxsize=None)
+def _collection_fold_for(folds):
+    def fold(tot, part):
+        return tuple(f(t, p) for f, t, p in zip(folds, tot, part))
+
+    return fold
+
+
+@functools.lru_cache(maxsize=None)
+def _collection_combine_for(combines):
+    def combine(parts, comm=None):
+        return tuple(c([p[i] for p in parts], comm)
+                     for i, c in enumerate(combines))
+
+    return combine
+
+
+class AnalysisCollection(AnalysisBase):
+    """Run several analyses over the same trajectory in one pass
+    (upstream 2.8's ``analysis.base.AnalysisCollection``)::
+
+        coll = AnalysisCollection(RMSF(ca), RadiusOfGyration(protein))
+        coll.run(device="cuda")
+        coll.analyses[0].results.rmsf
+
+    A collection stages each frame block once for all children: the
+    union of the children's selections is gathered on the host, and
+    each child's batch function slices its atoms back out on the
+    device.  Host staging sets the wall of a run on the card, so N
+    children cost about one pass, not N.
+
+    Constraints: children must be hook-driven — an analysis whose class
+    overrides ``run()`` is rejected at construction
+    (:class:`UncoalescableAnalysisError`), and collections do not nest.
+    On the batch and MPI backends the children must be either all
+    reductions (a device fold: RMSF, AverageStructure, ...) or all time
+    series (RMSD, RadiusOfGyration, ...), not a mix; ``backend='serial'``
+    runs any mix.  Ring (atom-sharded) analyses cannot join a
+    collection's batch path.  ``run()`` with no backend takes the
+    serial backend if any child does (:class:`AnalysisFromFunction`),
+    else ``'torch'``.
+    """
+
+    def __init__(self, *analyses, verbose: bool = False):
+        if not analyses:
+            raise ValueError("AnalysisCollection needs at least one analysis")
+        traj = analyses[0]._universe.trajectory
+        for a in analyses[1:]:
+            if a._universe.trajectory is not traj:
+                raise ValueError(
+                    "all analyses in a collection must share one "
+                    "trajectory (upstream contract); got distinct "
+                    "readers — run them separately")
+        for a in analyses:
+            if isinstance(a, AnalysisCollection):
+                raise ValueError(
+                    "collections do not nest; pass the inner "
+                    "collection's analyses directly")
+            if type(a).run is not AnalysisBase.run:
+                raise UncoalescableAnalysisError(
+                    f"{type(a).__name__} overrides run() (its "
+                    "algorithm or signature lives there) and cannot "
+                    "join a collection; run it separately — in a "
+                    "serving layer, submit it as its own per-job "
+                    "(non-coalesced) request", analysis=a)
+        super().__init__(analyses[0]._universe, verbose)
+        self.analyses = list(analyses)
+        # batch-path eligibility is resolved lazily (properties below):
+        # the serial backend never reads folds or combines, so any mix
+        # runs there; the batch and MPI backends get the error
+        folds = tuple(a._device_fold_fn for a in analyses)
+        self._mixed_folds = (any(f is not None for f in folds)
+                             and not all(f is not None for f in folds))
+        self._folds = folds
+        self._combines = tuple(a._device_combine for a in analyses)
+        self._ring_children = [
+            type(a).__name__ for a in analyses if needs_solo_on_batch(a)]
+
+    @property
+    def _host_waits_in_batch(self):
+        return any(a._host_waits_in_batch for a in self.analyses)
+
+    @property
+    def _default_backend(self):
+        return ("serial" if any(a._default_backend == "serial"
+                                for a in self.analyses) else "torch")
+
+    def _mix_error(self):
+        red = [type(a).__name__ for a, f in zip(self.analyses, self._folds)
+               if f is not None]
+        ser = [type(a).__name__ for a, f in zip(self.analyses, self._folds)
+               if f is None]
+        return ValueError(
+            "a collection's batch/MPI path needs all-reduction or "
+            f"all-time-series children, not a mix (reductions: {red}; "
+            f"series: {ser}); split into two collections or run with "
+            "backend='serial'")
+
+    @property
+    def _device_fold_fn(self):
+        if self._mixed_folds:
+            raise self._mix_error()
+        if all(f is not None for f in self._folds):
+            return _collection_fold_for(self._folds)
+        return None
+
+    @property
+    def _device_combine(self):
+        if self._mixed_folds:
+            raise self._mix_error()
+        if all(c is not None for c in self._combines):
+            return _collection_combine_for(self._combines)
+        if any(c is not None for c in self._combines):
+            mixed = [type(a).__name__
+                     for a, c in zip(self.analyses, self._combines)
+                     if c is None]
+            raise ValueError(
+                "a mesh collection needs every child to declare a "
+                f"_device_combine merge; missing on: {mixed} — run "
+                "those children separately or add the combine")
+        return None
+
+    def _check_ring_children(self):
+        if self._ring_children:
+            raise ValueError(
+                f"{self._ring_children} use atom-sharded (ring) "
+                "kernels and cannot consume a collection's union "
+                "block; run them separately (serial runs of a "
+                "collection never hit this)")
+
+    def _prepare(self):
+        for a in self.analyses:
+            if not a._accepts_updating_groups:
+                a._refuse_updating_groups()
+            a.n_frames = self.n_frames
+            a._frame_indices = self._frame_indices
+            a._run_device = getattr(self, "_run_device", None)
+            a._prepare()
+        self._compute_union()
+
+    def _single_frame(self, ts):
+        for a in self.analyses:
+            a._single_frame(ts)
+
+    def _serial_summary(self):
+        return tuple(a._serial_summary() for a in self.analyses)
+
+    def _identity_partials(self):
+        return tuple(a._identity_partials() for a in self.analyses)
+
+    def _compute_union(self):
+        """Union selection + per-child slot arrays, computed once at
+        _prepare time (the executors may read _batch_params before
+        _batch_select)."""
+        sels = [a._batch_select() for a in self.analyses]
+        if any(s is None for s in sels):
+            # some child consumes whole frames: stage full frames, each
+            # selected child gathers its absolute indices on the device
+            self._union = None
+            self._slots = tuple(
+                None if s is None else np.asarray(s) for s in sels)
+            return
+        union = np.unique(np.concatenate([np.asarray(s) for s in sels]))
+        slots = []
+        for s in sels:
+            pos = np.searchsorted(union, np.asarray(s))
+            if len(pos) == len(union) and np.array_equal(
+                    pos, np.arange(len(union))):
+                pos = None          # the child's selection IS the union
+            slots.append(pos)
+        self._union = union
+        self._slots = tuple(slots)
+
+    def _batch_select(self):
+        return self._union
+
+    def _batch_specs(self):
+        self._check_ring_children()
+        return None
+
+    def _batch_fn(self):
+        self._check_ring_children()
+        return _collection_kernel_for(
+            tuple(a._batch_fn() for a in self.analyses))
+
+    def _batch_params(self):
+        return tuple(
+            (None if s is None else torch.as_tensor(s, dtype=torch.int64),
+             a._batch_params())
+            for s, a in zip(self._slots, self.analyses))
+
+    def _conclude(self, total):
+        for a, t in zip(self.analyses, total):
+            a._last_total = t
+            a._conclude(t)
+        self.results.analyses = [a.results for a in self.analyses]

@@ -18,7 +18,9 @@ import torch
 
 from mdanalysis_mpi_tpu_torch.analysis.align import (
     AverageStructure, _f32, _reference_sel_coords)
-from mdanalysis_mpi_tpu_torch.analysis.base import AnalysisBase, to_numpy
+from mdanalysis_mpi_tpu_torch.analysis.base import (AnalysisBase,
+                                                    real_frames as _real_frames,
+                                                    to_numpy)
 from mdanalysis_mpi_tpu_torch.core.groups import AtomGroup
 from mdanalysis_mpi_tpu_torch.ops import host
 from mdanalysis_mpi_tpu_torch.ops.moments import (merge_moments,
@@ -108,15 +110,20 @@ def _psum_moments_partials(parts, comm=None):
     return psum_moments(parts, comm)
 
 
-def _real_frames(x, mask, n: int):
-    """The rows of a per-frame series whose ``mask`` is set, in frame
-    order.  On a tensor this reads nothing back from the device: a
-    stable sort of the mask puts the ``n`` real rows (``n`` known on
-    the host) first, and the gather keeps them."""
-    if not isinstance(x, torch.Tensor):
-        return np.asarray(x)[np.asarray(mask) > 0.5]
-    order = torch.argsort((mask <= 0.5).to(torch.int32), stable=True)
-    return x[order[:n]]
+def center_reference(ref, masses):
+    """``(ref − com, com)`` of reference coordinates under ``masses``
+    (the JAX package's ``_center_ref_jit``): a reference that came out
+    of a device pass stays on its device (float32), a host one is
+    centred in float64."""
+    if isinstance(ref, torch.Tensor):
+        from mdanalysis_mpi_tpu_torch.ops.align import weighted_center
+
+        ref32 = ref.to(torch.float32)
+        com = weighted_center(ref32, _f32(masses).to(ref.device))
+        return ref32 - com, com
+    ref = np.asarray(ref, np.float64)
+    com = host.weighted_center(ref, masses)
+    return ref - com, com
 
 
 def rmsd(a, b, weights=None, center: bool = False,
@@ -534,18 +541,8 @@ class _MomentsToReference(AnalysisBase):
         # center the average-structure reference (RMSF.py:116-118); a
         # reference that came out of a device pass 1 is centred on its
         # device
-        ref = self._ref_sel_positions
-        if isinstance(ref, torch.Tensor):
-            from mdanalysis_mpi_tpu_torch.ops.align import weighted_center
-
-            ref32 = ref.to(torch.float32)
-            com = weighted_center(
-                ref32, _f32(self._masses).to(ref.device))
-            self._ref_sel_c, self._ref_com = ref32 - com, com
-        else:
-            com = host.weighted_center(ref, self._masses)
-            self._ref_sel_c = ref - com
-            self._ref_com = com
+        self._ref_sel_c, self._ref_com = center_reference(
+            self._ref_sel_positions, self._masses)
         # _single_frame caches the host copy of the centered reference;
         # it must not survive a re-run
         self._ref_np = None

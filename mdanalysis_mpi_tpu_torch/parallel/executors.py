@@ -626,13 +626,17 @@ class _GroupGraph:
 _HIT_ONCE = "hit once"
 
 
-def _run_group(cache, key, entry, tag, body, params, total, device):
+def _run_group(cache, key, entry, tag, body, params, total, device,
+               capture: bool = True):
     """Dispatch one cached group.  Elsewhere than on a CUDA device, and
     at the group's first hit on one, run ``body`` eagerly; from its
     second hit on, replay its graph (captured then and kept with the
     cache entry).  A capture costs more than one eager run of the
-    group, so a run repeated only once never pays for one."""
-    if device.type != "cuda":
+    group, so a run repeated only once never pays for one.  With
+    ``capture`` False (a batch function that waits on the device from
+    the host, which no graph can capture) the group always runs
+    eagerly."""
+    if device.type != "cuda" or not capture:
         return body(params, total)
     prog = cache.program(key, entry, tag)
     if prog is None:
@@ -1281,6 +1285,7 @@ class TorchExecutor:
         scan_k = self._scan_k(setup, reader, len(frames), bs)
         fold = analysis._device_fold_fn
         fn, cache, device = setup.fn, self.block_cache, self.device
+        capture = not getattr(analysis, "_host_waits_in_batch", False)
 
         def scan(key, stacked, total):
             role = ("series" if fold is None
@@ -1293,7 +1298,7 @@ class TorchExecutor:
             return _run_group(
                 cache, key, stacked,
                 setup.program_tag(fold, role, 0, params, total), body,
-                params, total, device)
+                params, total, device, capture)
 
         return _run_batches(
             analysis, reader, frames, bs,
@@ -1532,10 +1537,12 @@ class MeshExecutor:
         return (tuple(str(d) for d in self.devices),
                 None if comm is None else (comm.rank, comm.size))
 
-    def _scan(self, setup, fold, combine, params_dev, comm):
+    def _scan(self, setup, fold, combine, params_dev, comm,
+              capture=True):
         """The group dispatch: each device folds its shard (a graph a
-        CUDA device), then one combine across devices; a series is
-        reassembled block by block in frame order."""
+        CUDA device unless ``capture`` is False), then one combine
+        across devices; a series is reassembled block by block in frame
+        order."""
         cache, devs = self.block_cache, self.devices
         dev0 = devs[0]
         fn = setup.fn
@@ -1552,7 +1559,7 @@ class MeshExecutor:
                 locs.append(_run_group(
                     cache, key, stacked,
                     setup.program_tag(fold, role, j, p, None), body, p,
-                    None, dev))
+                    None, dev, capture))
             if fold is None:
                 return _cat_partials([
                     _cat_partials([_tree_to(loc[k], dev0) for loc in locs])
@@ -1590,7 +1597,10 @@ class MeshExecutor:
                 _block_nbytes(gbs, setup.sel_idx, reader.n_atoms,
                               self.transfer_dtype))
             if scan_k > 1:
-                scan = self._scan(setup, fold, combine, params_dev, comm)
+                scan = self._scan(setup, fold, combine, params_dev, comm,
+                                  not getattr(analysis,
+                                              "_host_waits_in_batch",
+                                              False))
 
         def call(*shards):
             outs = [fn(p, *s) for p, s in zip(params_dev, shards)]

@@ -25,7 +25,8 @@ from mdanalysis_mpi_tpu.ops import align as jalign
 from mdanalysis_mpi_tpu.reliability import faults as jax_faults
 from mdanalysis_mpi_tpu.reliability.policy import (
     ReliabilityPolicy as JaxPolicy)
-from mdanalysis_mpi_tpu_torch.analysis import RMSF, AlignedRMSF
+from mdanalysis_mpi_tpu_torch import analysis as port_analysis
+from mdanalysis_mpi_tpu_torch.analysis import PCA, RMSF, AlignedRMSF
 from mdanalysis_mpi_tpu_torch.ops import align as talign
 from mdanalysis_mpi_tpu_torch.reliability import faults
 from mdanalysis_mpi_tpu_torch.reliability.policy import ReliabilityPolicy
@@ -161,6 +162,97 @@ def test_two_pass_checkpoint_crosses_packages(writer, tmp_path):
         got = np.asarray(a.results.rmsf)
     np.testing.assert_allclose(got, s.results.rmsf, atol=1e-3)
     assert not os.listdir(td)
+
+
+def _pca(pkg, u):
+    cls = jax_analysis.PCA if pkg == "jax" else PCA
+    return cls(u, select="name CA", n_components=4)
+
+
+def _collection(pkg, u):
+    a = jax_analysis if pkg == "jax" else port_analysis
+    return a.AnalysisCollection(
+        a.RMSF(u.select_atoms("name CA")),
+        a.AverageStructure(u, select="name CB", select_only=True))
+
+
+def _np(x):
+    return np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor)
+                      else x)
+
+
+@pytest.mark.parametrize("kind", ["pca", "collection"])
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_reduction_checkpoint_crosses_packages(kind, writer, tmp_path):
+    """``PCA(align=False)`` (partials T, Σx, Σxᵀx) and an all-reduction
+    ``AnalysisCollection`` (its children's partials, nested): one
+    package's checkpoint after two 16-frame chunks resumes in the other,
+    which runs only the last two chunks (the fingerprint, hashing the
+    class name and the collection's union selection, is the same) and
+    matches the serial oracle (PCA: variances within test_pca.py's 2e-2
+    relative and 1e-3 of the top; the collection's children within
+    1e-3)."""
+    make = _pca if kind == "pca" else _collection
+    td = str(tmp_path)
+    kw = dict(chunk_frames=16, batch_size=8, checkpoint_dir=td)
+    jax_ckpt = __import__("mdanalysis_mpi_tpu.utils.checkpoint",
+                          fromlist=["_save"])
+    w_mod, r_mod = (jax_ckpt, ckpt) if writer == "jax" else (ckpt, jax_ckpt)
+    real_save = w_mod._save
+    calls = {"n": 0}
+
+    def crashing_save(p, done, partials, fp, dropped=()):
+        real_save(p, done, partials, fp, dropped)
+        calls["n"] += 1
+        if calls["n"] == 2:
+            raise RuntimeError("simulated crash")
+
+    w_mod._save = crashing_save
+    try:
+        with pytest.raises(RuntimeError):
+            if writer == "jax":
+                jax_ckpt.run_checkpointed(
+                    make("jax", jax_testing.make_protein_universe(**KW)),
+                    backend="jax", **kw)
+            else:
+                ckpt.run_checkpointed(
+                    make("port", make_protein_universe(**KW)),
+                    backend="torch", device="cpu", **kw)
+    finally:
+        w_mod._save = real_save
+    (path,) = _ckpts(tmp_path)
+    with np.load(path) as z:
+        assert int(z["frames_done"]) == 32
+    resumed = []
+    r_save = r_mod._save
+
+    def recording_save(p, done, partials, fp, dropped=()):
+        resumed.append(done)
+        return r_save(p, done, partials, fp, dropped)
+
+    r_mod._save = recording_save
+    try:
+        if writer == "jax":
+            a = make("port", make_protein_universe(**KW))
+            ckpt.run_checkpointed(a, backend="torch", device="cpu", **kw)
+        else:
+            a = make("jax", jax_testing.make_protein_universe(**KW))
+            jax_ckpt.run_checkpointed(a, backend="jax", **kw)
+    finally:
+        r_mod._save = r_save
+    assert resumed == [48, 64]
+    assert not os.listdir(td)
+    s = make("port", make_protein_universe(**KW)).run(backend="serial")
+    if kind == "pca":
+        want = s.results.variance
+        np.testing.assert_allclose(_np(a.results.variance), want,
+                                   rtol=2e-2, atol=1e-3 * float(want[0]))
+    else:
+        np.testing.assert_allclose(_np(a.analyses[0].results.rmsf),
+                                   s.analyses[0].results.rmsf, atol=1e-3)
+        np.testing.assert_allclose(_np(a.analyses[1].results.positions),
+                                   _np(s.analyses[1].results.positions),
+                                   atol=1e-3)
 
 
 def test_checkpoint_leaves_round_trip(tmp_path):

@@ -822,3 +822,189 @@ def test_cuda_hbonds_batch_matches_serial_and_graph_replay():
     for _ in range(4):
         np.testing.assert_array_equal(
             HydrogenBondAnalysis(u).run(backend=exe).results.count, got)
+
+
+# ---- the generic analysis API and the analyses of ROADMAP A8 (torch
+# ops, no hand kernel) on the card ----
+
+def _an_universe():
+    from mdanalysis_mpi_tpu_torch.testing import make_protein_universe
+
+    return make_protein_universe(n_residues=60, n_frames=40, noise=0.3,
+                                 seed=7)
+
+
+def _leaves(tree):
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in _leaves(t)]
+    return [] if tree is None else [tree]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["reductions", "series"])
+def test_cuda_collection_equals_solo_runs_and_replays_its_graph(kind):
+    """An AnalysisCollection on the card: each child's partials equal
+    to its solo run's, and three repeats over one block cache equal to
+    the first, the last replaying the captured graph."""
+    from mdanalysis_mpi_tpu_torch.analysis import (RMSD, RMSF,
+                                                   AnalysisCollection,
+                                                   AverageStructure,
+                                                   RadiusOfGyration)
+    from mdanalysis_mpi_tpu_torch.parallel.executors import DeviceBlockCache
+    from mdanalysis_mpi_tpu_torch.utils import compile_cache
+
+    _card()
+    u = _an_universe()
+    ca = u.select_atoms("name CA")
+    makers = ([lambda: RMSF(ca),
+               lambda: AverageStructure(u, select="name CA",
+                                        select_only=True)]
+              if kind == "reductions" else
+              [lambda: RMSD(u, select="name CA"),
+               lambda: RadiusOfGyration(u.select_atoms("protein"))])
+    kw = dict(backend="torch", device="cuda", batch_size=8)
+    solos = [m().run(**kw) for m in makers]
+    first = AnalysisCollection(*[m() for m in makers]).run(**kw)
+    for child, solo in zip(first.analyses, solos):
+        for a, b in zip(_leaves(child._last_total), _leaves(solo._last_total)):
+            assert torch.equal(a, b)
+    cache = DeviceBlockCache()
+    for i in range(4):
+        before = compile_cache.counters()["replays"]
+        c = AnalysisCollection(*[m() for m in makers]).run(
+            block_cache=cache, scan_k="auto", **kw)
+        for child, ref in zip(c.analyses, first.analyses):
+            for a, b in zip(_leaves(child._last_total),
+                            _leaves(ref._last_total)):
+                assert torch.equal(a, b)
+    assert compile_cache.counters()["replays"] > before
+    assert len(cache.graphs()) == 1
+
+
+@pytest.mark.cuda
+def test_cuda_density_and_linear_density_repeat_bit_identical():
+    """DensityAnalysis' int32 counts and LinearDensity's order-fixed
+    float32 sums: a repeat on the card gives the same bits; the density
+    total is exact and the profiles sit within 5e-2 of the serial
+    oracle (benchmarks/suite.py's gate)."""
+    from mdanalysis_mpi_tpu_torch.analysis import (DensityAnalysis,
+                                                   LinearDensity)
+    from mdanalysis_mpi_tpu_torch.testing import make_water_universe
+
+    _card()
+    u = make_water_universe(n_waters=4000, n_frames=16, box=49.3, seed=3)
+    u.add_TopologyAttr("charges", np.tile([-0.834, 0.417, 0.417], 4000))
+    ow = u.select_atoms("name OW")
+    kw = dict(backend="torch", device="cuda", batch_size=4)
+    a = DensityAnalysis(ow, delta=1.0).run(**kw)
+    b = DensityAnalysis(ow, delta=1.0).run(**kw)
+    assert torch.equal(a._last_total[1], b._last_total[1])
+    assert int(a._last_total[1].sum()) == 16 * 4000
+    for grouping in ("atoms", "residues"):
+        x = LinearDensity(u.atoms, grouping=grouping, binsize=0.25).run(**kw)
+        y = LinearDensity(u.atoms, grouping=grouping, binsize=0.25).run(**kw)
+        for p, q in zip(x._last_total, y._last_total):
+            assert torch.equal(p, q)
+        s = LinearDensity(u.atoms, grouping=grouping, binsize=0.25).run(
+            backend="serial")
+        for ax in "xyz":
+            np.testing.assert_allclose(x.results[ax].mass_density,
+                                       s.results[ax].mass_density,
+                                       atol=5e-2)
+
+
+def _family(name, u):
+    """(analysis maker, result key, compare) of one batch-function
+    family, at the tolerance of the JAX package's test."""
+    from mdanalysis_mpi_tpu_torch import analysis as an
+
+    prot = u.select_atoms("protein")
+
+    def close(atol, period=None):
+        def cmp(got, want):
+            d = np.abs(np.asarray(got, np.float64) - want)
+            if period:
+                d = np.minimum(d, period - d % period)
+            assert d.max() <= atol
+        return cmp
+
+    def pca_cmp(got, want):
+        np.testing.assert_allclose(got, want, rtol=2e-2,
+                                   atol=1e-3 * float(want[0]))
+
+    def dssp_cmp(got, want):
+        assert (got == want).mean() >= 0.98
+
+    return {
+        "rgyr": (lambda: an.RadiusOfGyration(prot), "rgyr", close(1e-4)),
+        "dihedrals": (lambda: an.Ramachandran(prot), "angles",
+                      close(0.15, 360.0)),
+        "helix": (lambda: an.HELANAL(u, select="name CA"), "local_rises",
+                  close(1e-4)),
+        "pca": (lambda: an.PCA(u, select="name CA", align=True), "variance",
+                pca_cmp),
+        "gnm": (lambda: an.GNMAnalysis(u, select="name CA"), "eigenvalues",
+                close(1e-3)),
+        "dssp": (lambda: an.DSSP(u), "dssp", dssp_cmp),
+        "msd": (lambda: an.EinsteinMSD(u, select="name CA"), "timeseries",
+                close(1e-2)),
+    }[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rgyr", "dihedrals", "helix", "pca",
+                                  "gnm", "dssp", "msd"])
+def test_cuda_analysis_family_matches_serial(name):
+    """Each batch-function family on the card against the serial
+    float64 oracle, a repeat bit-identical, and three more runs over one
+    block cache (GNM's eigh waits on the device, so its groups run
+    eagerly instead of being captured) equal to the first."""
+    from mdanalysis_mpi_tpu_torch.parallel.executors import DeviceBlockCache
+
+    _card()
+    u = _an_universe()
+    make, key, cmp = _family(name, u)
+    kw = dict(backend="torch", device="cuda", batch_size=8)
+    got = np.asarray(getattr(make().run(**kw).results, key))
+    again = np.asarray(getattr(make().run(**kw).results, key))
+    np.testing.assert_array_equal(got, again)
+    cmp(got, np.asarray(getattr(make().run(backend="serial").results, key)))
+    cache = DeviceBlockCache()
+    for _ in range(3):
+        r = make().run(block_cache=cache, scan_k="auto", **kw)
+        np.testing.assert_array_equal(np.asarray(getattr(r.results, key)),
+                                      got)
+
+
+@pytest.mark.cuda
+def test_cuda_bat_and_polymer_match_serial():
+    """BAT (a bonded fragment after guess_bonds) and PersistenceLength
+    on the card against the serial float64 oracle (1e-4 with torsions
+    modulo 2π; 1e-5)."""
+    from mdanalysis_mpi_tpu_torch.analysis import BAT, PersistenceLength
+    from mdanalysis_mpi_tpu_torch.core.topology import Topology
+    from mdanalysis_mpi_tpu_torch.core.universe import Universe
+    from mdanalysis_mpi_tpu_torch.io.memory import MemoryReader
+
+    _card()
+    kw = dict(backend="torch", device="cuda", batch_size=8)
+    u = _an_universe()
+    u.atoms.guess_bonds()
+    frag = max(u.atoms.fragments, key=lambda f: f.n_atoms)
+    b = BAT(frag)
+    got = b.run(**kw).results.bat
+    want = BAT(frag).run(backend="serial").results.bat
+    d = np.abs(got - want)
+    tor = slice(9 + 2 * len(b._quads_global), None)
+    d[:, tor] = np.minimum(d[:, tor], 2 * np.pi - d[:, tor])
+    assert d.max() <= 1e-4
+    rng = np.random.default_rng(41)
+    pos = np.cumsum(rng.normal(size=(24, 8 * 12, 3)), axis=1)
+    top = Topology(names=np.full(96, "C"), resnames=np.full(96, "POL"),
+                   resids=np.arange(1, 97))
+    up = Universe(top, MemoryReader(pos.astype(np.float32)))
+    chains = [up.atoms[i * 12:(i + 1) * 12] for i in range(8)]
+    p = PersistenceLength(chains).run(**kw)
+    s = PersistenceLength(chains).run(backend="serial")
+    np.testing.assert_allclose(p.results.bond_autocorrelation,
+                               s.results.bond_autocorrelation, atol=1e-5)
