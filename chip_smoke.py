@@ -6,6 +6,20 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
+That runs every phase.  ``--phases 3,4,13`` runs a comma list of them
+instead (phases 1 and 2 always run; every check within a selected phase
+stays).  A phase that needs what an earlier phase builds either builds
+it itself (the water box of phases 3, 5, 10, 12 and 13; phase 13's
+PSF/DCD) or refuses the selection with a message and exit code 2:
+phases 6, 8, 9, 10 and 12 run on phase 4's system and result, so they
+need 4; phase 5 compares with phase 3's main case, so it needs 3.  The
+kernel table line needs phase 3's timings: without phase 3 the script
+says so in its place.  A kernel's ``launches`` there is the count of its
+whole main path, so it is null unless every phase that launches it on
+that path ran (the fused kernel: 4, 8, 9, 10; the pair histogram: 5,
+10); the counts of the phases that did run are printed on a line of
+their own.
+
 Phases (each prints its own lines; any failure exits non-zero and
 prints no ok line):
 
@@ -239,6 +253,45 @@ prints no ok line):
    suite.py:394), each repeat bit-identical.  Every leg prints its wall
    and frames/s; the phase prints its time.
 
+13. The last A8 analyses, the auxiliary series' reader surface and the
+   command line (after phase 12, before phase 7; torch ops, neither
+   hand kernel may launch).  (a) ``DistanceMatrix(u, select='name CA')``
+   of BASELINE config 1's protein (``make_protein_universe(835, 4096,
+   noise=0.3, seed=1)``) at the module's 4,096-frame cap, batch 512:
+   a 4,096 × 4,096 matrix, 8.4M distinct Kabsch problems, as row blocks
+   of float64 products and the QCP top eigenvalue; the repeat
+   bit-identical, the first 128 frames within 5e-3 Å of the serial
+   oracle (tests/test_diffusionmap.py), symmetric with a zero diagonal;
+   the host waits and device-to-host copies of a run and of its first
+   read; then ``DiffusionMap`` of the matrix (host eigh; the top
+   eigenvalue 1 within 1e-8, the embedding finite).  (b) ``PSAnalysis``
+   of eight 512-frame windows of that Cα trajectory (align=True),
+   Hausdorff and discrete Fréchet on the card (28 pairs a metric, one
+   batch; the Fréchet recurrence as the anti-diagonal wavefront), each
+   repeat bit-identical, pairs (0, 1) and (2, 7) within 0.05 of the
+   serial ``hausdorff``/``discrete_frechet`` (tests/test_psa.py), and
+   the wavefront EQUAL to the host recurrence on the card's own cross
+   matrix of those pairs.  (c) encore on two 256-frame ensembles of
+   that trajectory: ``conformational_distance_matrix`` on the card (the
+   repeat equal) within 5e-3 Å of the serial Kabsch loop over 64 frames
+   of each; ``hes`` finite, non-negative and symmetric (a harmonic
+   divergence, not bounded by ln 2), ``ces`` and ``dres`` on the card
+   within [0, ln 2].  (d) Phase 5's water box (32,768 waters, 64
+   frames, batch 16): ``WaterOrientationalRelaxation`` (dtmax 20; the
+   lag sums on the card) and ``AngularDistribution``, each repeat
+   bit-identical, against serial over 16 frames within 1e-5 and 1e-4;
+   ``DielectricConstant`` with TIP3P charges and ``make_whole=False`` on
+   ``TorchExecutor`` and on the mesh over the card, within 1e-3
+   relative of serial; ``VelocityAutocorr`` of 256 frames of seeded
+   AR(1) velocities (4 Å/ps, 0.9 a frame) of the same 98,304 atoms
+   against the float64 ``_np_fft_vacf`` of every 8th atom (1e-3 of the
+   largest |C|).  (e) ``python -m mdanalysis_mpi_tpu_torch aligned-rmsf
+   TOP TRAJ --output X.npz`` in a subprocess on phase 7's config-1
+   PSF/DCD (written again here), its JSON line parsed, the npz's
+   ``rmsf`` within 1e-5 Å of the same run in this process.  Every leg
+   prints its first-run and repeat walls and its error beside its gate,
+   with the card's name and power limit.
+
 Phase 3 also holds the pair-histogram kernel (``ops/fused_distances.
 pair_histogram``, ``csrc/pair_histogram.cu``) against
 ``pair_histogram_plain`` on the card: the main shape (the first block of
@@ -378,6 +431,26 @@ POLY_BEADS = 16
 DENSITY_DELTA = 1.0
 LINDENS_BINSIZE = 0.25
 TIP3P_CHARGES = (-0.834, 0.417, 0.417)
+# phase 13: the last A8 analyses at BASELINE config 1's width
+DM_FRAMES = 4096                     # DistanceMatrix's frame cap
+DM_BATCH = 512
+DM_ORACLE = 128                      # frames held to the serial loop
+DM_TOL = 5e-3                        # the JAX package's parity gate, A
+DM_F64_TOL = 1e-8                    # the float64 route against float64, A
+PSA_PATHS = 8
+PSA_FRAMES = 512
+PSA_PAIRS = ((0, 1), (2, 7))         # pairs held to the serial metrics
+ENC_FRAMES = 256
+ENC_ORACLE = 64                      # frames of each ensemble held to serial
+WATER_ORACLE = 16
+WOR_DTMAX = 20
+VACF_FRAMES = 256
+VACF_STRIDE = 8                      # the float64 oracle's particles
+VACF_RTOL = 1e-3                     # test_vacf.py's elementwise rtol
+VACF_FLOOR = 1e-2                    # lags held to it: |C| >= this x C(0)
+CLI_TOL = 1e-5
+# every phase, in the order they run
+PHASE_ORDER = (1, 2, 3, 4, 8, 5, 6, 9, 10, 12, 13, 7, 11)
 
 
 class SmokeFailure(Exception):
@@ -1326,6 +1399,21 @@ def phase_rmsd(card, u):
 
 # ---------------------------------------------------------------- phase 7
 
+def write_config1(tmp):
+    """BASELINE config 1 as files in ``tmp``: the JAX suite's protein
+    (benchmarks/suite.py:196: 3341 // 4 = 835 residues of 5 atoms,
+    4,175 atoms, 98 frames) → (psf path, dcd path, atoms)."""
+    from mdanalysis_mpi_tpu_torch.io.dcd import write_dcd
+    from mdanalysis_mpi_tpu_torch.io.psf import write_psf
+    from mdanalysis_mpi_tpu_torch.testing import make_protein_universe
+
+    u0 = make_protein_universe(n_residues=835, n_frames=98, noise=0.3, seed=1)
+    psf, dcd = os.path.join(tmp, "adk.psf"), os.path.join(tmp, "adk.dcd")
+    write_psf(psf, u0.topology)
+    write_dcd(dcd, u0.trajectory.read_block(0, 98)[0])
+    return psf, dcd, u0.atoms.n_atoms
+
+
 def phase_configs(card):
     """Phase 7: BASELINE configs 1 and 3 at their published sizes →
     the fused kernel's launches in config 1's run (pass 1, pass 2)."""
@@ -1333,20 +1421,12 @@ def phase_configs(card):
 
     from mdanalysis_mpi_tpu_torch import Universe
     from mdanalysis_mpi_tpu_torch.analysis import RMSD, AlignedRMSF
-    from mdanalysis_mpi_tpu_torch.io.dcd import write_dcd
-    from mdanalysis_mpi_tpu_torch.io.psf import write_psf
     from mdanalysis_mpi_tpu_torch.testing import make_protein_universe
 
-    # the JAX suite's config 1 (benchmarks/suite.py:196): 3341 // 4 =
-    # 835 residues of 5 atoms, 4,175 atoms
-    u0 = make_protein_universe(n_residues=835, n_frames=98, noise=0.3, seed=1)
-    n_atoms = u0.atoms.n_atoms
     run_kw = dict(backend="torch", device="cuda", batch_size=32,
                   transfer_dtype="int16")
     with tempfile.TemporaryDirectory() as tmp:
-        psf, dcd = os.path.join(tmp, "adk.psf"), os.path.join(tmp, "adk.dcd")
-        write_psf(psf, u0.topology)
-        write_dcd(dcd, u0.trajectory.read_block(0, 98)[0])
+        psf, dcd, n_atoms = write_config1(tmp)
         u = Universe(psf, dcd)
         ca = u.select_atoms("name CA")
         check(ca.n_atoms == 835 and u.trajectory.n_frames == 98,
@@ -3116,6 +3196,402 @@ def phase_analyses(card, u_e2e, uw, ow):
     print(f"analysis phase: {time.perf_counter() - t_phase:.1f} s on {card}")
 
 
+# ---------------------------------------------------------------- phase 13
+
+def distance_matrix_leg(card, u):
+    """Phase 13 (a): DistanceMatrix at its 4,096-frame cap, then
+    DiffusionMap of the matrix → the run (its Cα trajectory is (b)'s
+    and (c)'s input)."""
+    from mdanalysis_mpi_tpu_torch.analysis import DiffusionMap, DistanceMatrix
+
+    kw = dict(backend="torch", device="cuda", batch_size=DM_BATCH)
+
+    def run():
+        dm = DistanceMatrix(u, select="name CA").run(**kw)
+        return dm, dm.results.dist_matrix
+
+    (dm, m), wall = timed(run)
+    (_, m2), wall2 = timed(run)
+    check(same(m, m2), "DistanceMatrix: repeat not bit-identical")
+    t = DM_FRAMES
+    check(m.shape == (t, t) and bool(np.isfinite(m).all()),
+          f"DistanceMatrix: shape {m.shape}, finite {np.isfinite(m).all()}")
+    check(np.array_equal(m, m.T) and not np.diag(m).any(),
+          "DistanceMatrix: not symmetric with a zero diagonal")
+    _, base, _ = host_syncs(lambda: None)
+    _, w_run, d_run = host_syncs(
+        lambda: DistanceMatrix(u, select="name CA").run(**kw))
+    _, w_read, d_read = host_syncs(run)
+    t_ser = time.perf_counter()
+    s = DistanceMatrix(u, select="name CA").run(
+        stop=DM_ORACLE, backend="serial").results.dist_matrix
+    t_ser = time.perf_counter() - t_ser
+    err = float(np.abs(m[:DM_ORACLE, :DM_ORACLE] - s).max())
+    eps = float(np.median(m)) ** 2
+    dmap, t_map = timed(lambda: DiffusionMap(dm, epsilon=eps).run())
+    vals = dmap.results.eigenvalues
+    emb = dmap.transform(3)
+    n_sel = len(u.select_atoms("name CA"))
+    pairs = t * (t - 1) // 2
+    print(f"remaining analyses DistanceMatrix(name CA): {n_sel} atoms x {t} "
+          f"frames, batch {DM_BATCH}, {pairs} Kabsch problems: wall "
+          f"{wall:.3f} s ({pairs / wall:.4g} pairs/s, the matrix read "
+          f"back), repeat {wall2:.3f} s bit-identical; a run() waits on the "
+          f"card {own_waits(w_run, base)} times ({d_run} copies to the "
+          f"host), run and first read {own_waits(w_read, base)} ({d_read} "
+          f"copies); vs serial float64 over {DM_ORACLE} frames "
+          f"({t_ser:.2f} s): max |d| {err:.3g} A (parity limit {DM_TOL}, "
+          f"float64 limit {DM_F64_TOL}) on {card}")
+    check(err <= DM_TOL, f"DistanceMatrix: {err:.3g} A against the serial "
+          f"oracle (limit {DM_TOL})")
+    # the device route is float64 throughout (products and QCP): float32
+    # products or fewer Newton steps would show far above this
+    check(err <= DM_F64_TOL, f"DistanceMatrix: {err:.3g} A against the "
+          f"serial float64 loop (the float64 route's limit {DM_F64_TOL})")
+    print(f"remaining analyses DiffusionMap(epsilon={eps:.4g}) of the "
+          f"{t}x{t} matrix (host eigh): {t_map:.3f} s; top eigenvalues "
+          f"{vals[0]:.12f} {vals[1]:.6f} {vals[2]:.6f}, embedding "
+          f"{emb.shape} on {card}")
+    check(abs(vals[0] - 1.0) <= 1e-8 and bool(np.isfinite(emb).all()),
+          f"DiffusionMap: top eigenvalue {vals[0]!r}, embedding finite "
+          f"{np.isfinite(emb).all()}")
+
+
+def psa_leg(card, ca_frames):
+    """Phase 13 (b): PSAnalysis of eight 512-frame windows, both
+    metrics on the card."""
+    import torch
+
+    from mdanalysis_mpi_tpu_torch.analysis import (PSAnalysis,
+                                                   discrete_frechet,
+                                                   hausdorff)
+    from mdanalysis_mpi_tpu_torch.analysis.psa import (_frechet_np,
+                                                       cross_rmsd,
+                                                       frechet_wavefront)
+
+    paths = [ca_frames[k * PSA_FRAMES:(k + 1) * PSA_FRAMES]
+             for k in range(PSA_PATHS)]
+    psa, t_align = timed(lambda: PSAnalysis(paths, align=True))
+    n_pairs = PSA_PATHS * (PSA_PATHS - 1) // 2
+    for metric, host_fn in (("hausdorff", hausdorff),
+                            ("discrete_frechet", discrete_frechet)):
+        def run():
+            return psa.run(metric=metric, backend="torch",
+                           device="cuda").results.D
+
+        d, wall = timed(run)
+        d2, wall2 = timed(run)
+        check(same(d, d2), f"PSA {metric}: repeat not bit-identical")
+        check(bool(np.isfinite(d).all()) and not np.diag(d).any(),
+              f"PSA {metric}: matrix not finite with a zero diagonal")
+        t_ser = time.perf_counter()
+        errs = [abs(d[i, j] - host_fn(psa._paths[i], psa._paths[j]))
+                for i, j in PSA_PAIRS]
+        t_ser = time.perf_counter() - t_ser
+        err = float(max(errs))
+        print(f"remaining analyses PSAnalysis({metric}): {PSA_PATHS} paths "
+              f"of {PSA_FRAMES} frames x {paths[0].shape[1]} atoms "
+              f"({n_pairs} pairs, host alignment {t_align:.2f} s): wall "
+              f"{wall:.3f} s, repeat {wall2:.3f} s bit-identical; pairs "
+              f"{list(PSA_PAIRS)} vs serial float64 ({t_ser:.2f} s): max "
+              f"|d| {err:.3g} (limit 0.05) on {card}")
+        check(err <= 0.05, f"PSA {metric}: {err:.3g} against the serial "
+              "metric (limit 0.05)")
+    for i, j in PSA_PAIRS:
+        p = torch.as_tensor(np.asarray(psa._paths[i], np.float32),
+                            device="cuda")
+        q = torch.as_tensor(np.asarray(psa._paths[j], np.float32),
+                            device="cuda")
+        m = cross_rmsd(p, q)
+        got = float(frechet_wavefront(m))
+        want = _frechet_np(m.cpu().numpy())
+        check(got == want, f"PSA: the wavefront {got!r} differs from the "
+              f"host recurrence {want!r} on the card's cross matrix of "
+              f"pair ({i}, {j})")
+    print(f"remaining analyses PSA: the Frechet wavefront equals the host "
+          f"recurrence on the card's cross matrices of pairs "
+          f"{list(PSA_PAIRS)} on {card}")
+
+
+def encore_leg(card, ca_frames):
+    """Phase 13 (c): encore on two 256-frame ensembles."""
+    from mdanalysis_mpi_tpu_torch.analysis import ces, dres, hes
+    from mdanalysis_mpi_tpu_torch.analysis.encore import (
+        LN2, conformational_distance_matrix)
+    from mdanalysis_mpi_tpu_torch.analysis.rms import rmsd
+
+    e1 = ca_frames[:ENC_FRAMES]
+    e2 = ca_frames[DM_FRAMES // 2:DM_FRAMES // 2 + ENC_FRAMES]
+    joint = np.concatenate([e1, e2]).astype(np.float64)
+    d, wall = timed(lambda: conformational_distance_matrix(joint, "cuda"))
+    d2, wall2 = timed(lambda: conformational_distance_matrix(joint, "cuda"))
+    check(same(d, d2), "encore distance matrix: repeat not bit-identical")
+    idx = list(range(ENC_ORACLE)) + list(range(ENC_FRAMES,
+                                               ENC_FRAMES + ENC_ORACLE))
+    t_ser = time.perf_counter()
+    x = joint.astype(np.float32)
+    err = 0.0
+    for a, i in enumerate(idx):
+        for j in idx[a + 1:]:
+            err = max(err, abs(d[i, j] - rmsd(x[j], x[i],
+                                              superposition=True)))
+    t_ser = time.perf_counter() - t_ser
+    print(f"remaining analyses encore conformational_distance_matrix: "
+          f"{len(joint)} frames x {joint.shape[1]} atoms: wall {wall:.3f} "
+          f"s, repeat {wall2:.3f} s bit-identical; vs the serial Kabsch "
+          f"loop over {ENC_ORACLE} frames of each ensemble ({t_ser:.2f} "
+          f"s): max |d| {err:.3g} A (limit 5e-3) on {card}")
+    check(err <= 5e-3, f"encore distance matrix: {err:.3g} A against the "
+          "serial loop (limit 5e-3)")
+    (dh, _), t_h = timed(lambda: hes([e1, e2]))
+    (dc, _), t_c = timed(lambda: ces([e1, e2], device="cuda"))
+    (dd, _), t_d = timed(lambda: dres([e1, e2], device="cuda"))
+    print(f"remaining analyses encore, two ensembles of {ENC_FRAMES} "
+          f"frames: hes {dh[0, 1]:.6g} ({t_h:.2f} s), ces {dc[0, 1]:.6g} "
+          f"({t_c:.2f} s), dres {dd[0, 1]:.6g} ({t_d:.2f} s) on {card}")
+    check(bool(np.isfinite(dh).all()) and dh.min() >= 0.0
+          and np.array_equal(dh, dh.T),
+          f"hes: {dh} not finite, non-negative and symmetric")
+    for name, v in (("ces", dc), ("dres", dd)):
+        check(bool(np.isfinite(v).all()) and v.min() >= 0.0
+              and v.max() <= LN2, f"{name}: {v} outside [0, ln 2]")
+
+
+def water_legs(card, uw, ow):
+    """Phase 13 (d): WOR, AngularDistribution, DielectricConstant and
+    VelocityAutocorr on phase 5's water box."""
+    from mdanalysis_mpi_tpu_torch import Universe
+    from mdanalysis_mpi_tpu_torch.analysis import (
+        AngularDistribution, DielectricConstant, VelocityAutocorr,
+        WaterOrientationalRelaxation)
+    from mdanalysis_mpi_tpu_torch.analysis.vacf import _np_fft_vacf
+    from mdanalysis_mpi_tpu_torch.io.memory import MemoryReader
+
+    kw = dict(backend="torch", device="cuda", batch_size=RDF_BATCH)
+    n_f, n_w = uw.trajectory.n_frames, ow.n_atoms
+    for label, make, key, tol in (
+            (f"WaterOrientationalRelaxation(dtmax={WOR_DTMAX})",
+             lambda: WaterOrientationalRelaxation(uw, "name OW",
+                                                  dtmax=WOR_DTMAX),
+             "timeseries", 1e-5),
+            ("AngularDistribution(bins=40)",
+             lambda: AngularDistribution(uw, "name OW"), "dip", 1e-4)):
+        keys = (key,) if key == "timeseries" else ("OH", "HH", "dip")
+
+        def run(stop=None, **k):
+            a = make().run(stop=stop, **(k or kw))
+            return {x: np.asarray(getattr(a.results, x)) for x in keys}
+
+        got, wall = timed(run)
+        again, wall2 = timed(run)
+        check(all(same(got[x], again[x]) for x in keys),
+              f"{label}: repeat not bit-identical")
+        t_ser = time.perf_counter()
+        want = run(WATER_ORACLE, backend="serial")
+        t_ser = time.perf_counter() - t_ser
+        dev = run(WATER_ORACLE)
+        err = max(float(np.abs(dev[x] - want[x]).max()) for x in keys)
+        print(f"remaining analyses {label}: {n_w} waters x {n_f} frames, "
+              f"batch {RDF_BATCH}: wall {wall:.3f} s ({n_f / wall:.1f} "
+              f"frames/s, results read back), repeat {wall2:.3f} s "
+              f"bit-identical; vs serial float64 over {WATER_ORACLE} frames "
+              f"({t_ser:.2f} s): max |d| {err:.3g} (limit {tol}) on {card}")
+        check(err <= tol, f"{label}: {err:.3g} against the serial oracle "
+              f"(limit {tol})")
+
+    if uw.topology.charges is None:
+        uw.add_TopologyAttr("charges", np.tile(TIP3P_CHARGES, n_w))
+    want = DielectricConstant(uw.atoms, make_whole=False).run(
+        backend="serial").results
+    for label, run_kw in (("TorchExecutor", kw),
+                          ("the mesh over the card",
+                           dict(backend="mesh", batch_size=RDF_BATCH))):
+        def run():
+            r = DielectricConstant(uw.atoms, make_whole=False).run(
+                **run_kw).results
+            return np.asarray(r.eps), float(r.eps_mean)
+
+        (eps, eps_mean), wall = timed(run)
+        (eps2, eps_mean2), wall2 = timed(run)
+        check(same(eps, eps2) and eps_mean == eps_mean2,
+              f"DielectricConstant on {label}: repeat not bit-identical")
+        rel = max(float(np.abs(eps / want.eps - 1.0).max()),
+                  abs(eps_mean / want.eps_mean - 1.0))
+        print(f"remaining analyses DielectricConstant(TIP3P, "
+              f"make_whole=False) on {label}: {uw.atoms.n_atoms} atoms x "
+              f"{n_f} frames: wall {wall:.3f} s, repeat {wall2:.3f} s "
+              f"bit-identical; eps_mean {eps_mean:.6g} vs serial "
+              f"{want.eps_mean:.6g}: max relative |d| {rel:.3g} (limit "
+              f"1e-3) on {card}")
+        check(rel <= 1e-3, f"DielectricConstant on {label}: {rel:.3g} "
+              "relative to serial (limit 1e-3)")
+
+    t0 = time.perf_counter()
+    n_at = uw.atoms.n_atoms
+    rng = np.random.default_rng(13)
+    vel = np.empty((VACF_FRAMES, n_at, 3), np.float32)
+    v = rng.normal(scale=4.0, size=(n_at, 3))
+    for f in range(VACF_FRAMES):
+        v = 0.9 * v + np.sqrt(1.0 - 0.81) * rng.normal(scale=4.0,
+                                                       size=(n_at, 3))
+        vel[f] = v
+    uv = Universe(uw.topology, MemoryReader(
+        np.zeros((VACF_FRAMES, n_at, 3), np.float32), velocities=vel))
+    t_build = time.perf_counter() - t0
+
+    def run():
+        r = VelocityAutocorr(uv.atoms).run(backend="torch", device="cuda")
+        return np.asarray(r.results.vacf_by_particle)
+
+    by, wall = timed(run)
+    by2, wall2 = timed(run)
+    check(same(by, by2), "VelocityAutocorr: repeat not bit-identical")
+    t_ser = time.perf_counter()
+    want = _np_fft_vacf(vel[:, ::VACF_STRIDE])
+    t_ser = time.perf_counter() - t_ser
+    got = by[:, ::VACF_STRIDE]
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    # test_vacf.py's gate: rtol on the timeseries (the particles' mean),
+    # over the lags where C stays well above its sampling noise
+    ts_got, ts_want = got.mean(axis=1), want.mean(axis=1)
+    lags = np.abs(ts_want) >= VACF_FLOOR * abs(ts_want[0])
+    rel = float((np.abs(ts_got - ts_want)[lags]
+                 / np.abs(ts_want[lags])).max())
+    print(f"remaining analyses VelocityAutocorr: {n_at} atoms x "
+          f"{VACF_FRAMES} frames of AR(1) velocities (built in "
+          f"{t_build:.1f} s): wall {wall:.3f} s (host frame reads "
+          f"included), repeat {wall2:.3f} s, bit-identical "
+          f"{same(by, by2)}; float32 FFT vs the float64 _np_fft_vacf of "
+          f"every {VACF_STRIDE}th atom ({t_ser:.2f} s): max |d| / max |C| "
+          f"{err:.3g} (limit 1e-3); their timeseries over the "
+          f"{int(lags.sum())} of {lags.size} lags with |C| >= {VACF_FLOOR} "
+          f"C(0): max relative |d| {rel:.3g} (limit {VACF_RTOL}) on {card}")
+    check(err <= 1e-3, f"VelocityAutocorr: {err:.3g} of the largest |C| "
+          "against the float64 FFT (limit 1e-3)")
+    check(rel <= VACF_RTOL, f"VelocityAutocorr: timeseries {rel:.3g} "
+          f"relative to the float64 FFT (limit {VACF_RTOL})")
+
+
+def cli_leg(card):
+    """Phase 13 (e): ``python -m mdanalysis_mpi_tpu_torch`` on config
+    1's PSF/DCD in a subprocess against the same run in process."""
+    import tempfile
+
+    from mdanalysis_mpi_tpu_torch import Universe
+    from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
+
+    with tempfile.TemporaryDirectory() as tmp:
+        psf, dcd, _ = write_config1(tmp)
+        out = os.path.join(tmp, "rmsf.npz")
+        cmd = [sys.executable, "-m", "mdanalysis_mpi_tpu_torch",
+               "aligned-rmsf", psf, dcd, "--select", "name CA",
+               "--output", out]
+        env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                              cwd=tmp, timeout=600)
+        t_cli = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(summary["backend"] == "torch" and summary["n_frames"] == 98,
+              f"CLI summary {summary}")
+        got = np.load(out)["rmsf"]
+        want = AlignedRMSF(Universe(psf, dcd), select="name CA").run(
+            backend="torch", device="cuda").results.rmsf
+        err = float(np.abs(got - want).max())
+        print(f"remaining analyses CLI: python -m mdanalysis_mpi_tpu_torch "
+              f"aligned-rmsf PSF DCD ({got.shape[0]} CA x 98 frames): "
+              f"process {t_cli:.2f} s, its run wall {summary['wall_s']} s on "
+              f"backend {summary['backend']} (timed phases of the run: "
+              f"{summary['phases']}); npz rmsf vs the in-process "
+              f"run: max |d| {err:.3g} A (limit {CLI_TOL}) on {card}")
+        check(err <= CLI_TOL, f"CLI rmsf {err:.3g} A from the in-process "
+              f"run (limit {CLI_TOL})")
+
+
+def phase_remaining(card, uw, ow):
+    """Phase 13: the last A8 analyses and the command line on the card.
+    Launches neither hand kernel (torch ops)."""
+    from mdanalysis_mpi_tpu_torch.testing import make_protein_universe
+
+    t_phase = time.perf_counter()
+    before = kernel_counts()
+    t0 = time.perf_counter()
+    u = make_protein_universe(n_residues=AN_RESIDUES, n_frames=DM_FRAMES,
+                              noise=0.3, seed=1)
+    ca_frames = u.trajectory.read_block(
+        0, DM_FRAMES, sel=u.select_atoms("name CA").indices)[0]
+    print(f"remaining analyses: protein of {u.atoms.n_atoms} atoms x "
+          f"{DM_FRAMES} frames, built in {time.perf_counter() - t0:.1f} s")
+    legs = (("(a) DistanceMatrix", lambda: distance_matrix_leg(card, u)),
+            ("(b) PSA", lambda: psa_leg(card, ca_frames)),
+            ("(c) encore", lambda: encore_leg(card, ca_frames)),
+            ("(d) water", lambda: water_legs(card, uw, ow)),
+            ("(e) CLI", lambda: cli_leg(card)))
+    for name, leg in legs:
+        t0 = time.perf_counter()
+        leg()
+        print(f"remaining analyses leg {name}: {time.perf_counter() - t0:.1f}"
+              f" s on {card}")
+    check(kernel_counts() == before,
+          f"phase 13 launched a hand kernel: {before} -> {kernel_counts()}")
+    print(f"remaining analyses phase: {time.perf_counter() - t_phase:.1f} s "
+          f"on {card}")
+
+
+#: phases that run on the water box built once for them
+WATER_PHASES = {3, 5, 10, 12, 13}
+#: phases that launch each kernel on its main path
+FUSED_PHASES = (4, 8, 9, 10)
+PH_PHASES = (5, 10)
+#: phases that run on what another phase builds → that phase
+NEEDS = {6: 4, 8: 4, 9: 4, 10: 4, 12: 4, 5: 3}
+NEEDS_WHY = {4: "phase 4's system and its RMSF",
+             3: "phase 3's main pair-histogram case"}
+
+
+def select_phases(argv):
+    """The phases to run: every phase with no argument, else those of
+    ``--phases a,b,...`` and phases 1 and 2.  A selection that leaves
+    out a phase another selected phase needs is refused (ValueError)."""
+    if not argv:
+        return set(PHASE_ORDER)
+    if argv[0] != "--phases" or len(argv) != 2:
+        raise ValueError(f"unknown arguments {argv}; the script takes no "
+                         "argument or --phases N,N,...")
+    try:
+        chosen = {int(x) for x in argv[1].split(",") if x.strip()}
+    except ValueError:
+        raise ValueError(f"--phases {argv[1]!r}: a comma list of phase "
+                         "numbers") from None
+    bad = sorted(chosen - set(PHASE_ORDER))
+    if bad:
+        raise ValueError(f"--phases: no phase {bad}; the phases are "
+                         f"{sorted(PHASE_ORDER)}")
+    chosen |= {1, 2}
+    for p in sorted(chosen):
+        need = NEEDS.get(p)
+        if need is not None and need not in chosen:
+            raise ValueError(
+                f"--phases: phase {p} runs on {NEEDS_WHY[need]}; select "
+                f"phase {need} too")
+    return chosen
+
+
+def main_path_launches(name, count, kernel_phases, phases):
+    """A kernel's launches on its whole main path: ``count`` when every
+    phase of ``kernel_phases`` ran, else None (a count of some of the
+    path is no count of it; that count is printed instead)."""
+    ran = [p for p in kernel_phases if p in phases]
+    if len(ran) == len(kernel_phases):
+        return count
+    print(f"{name} launches: {count} in phases {ran} of its main path's "
+          f"{list(kernel_phases)}, so the kernel table's count is null")
+    return None
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not os.path.isdir(os.path.join(HERE, "mdanalysis_mpi_tpu_torch")):
@@ -3133,30 +3609,54 @@ def main(argv=None):
         warmup_child(argv[1], argv[2], argv[3])
         return 0
     try:
+        phases = select_phases(argv)
+    except ValueError as exc:
+        print(f"FAIL: {exc}", file=sys.stderr)
+        return 2
+    if phases != set(PHASE_ORDER):
+        print(f"phases: {sorted(phases)} of {list(PHASE_ORDER)} (in the "
+              f"order {[p for p in PHASE_ORDER if p in phases]})")
+    launches = ph_launches = 0
+    rows = ph_rows = None
+    try:
         card = phase_device()
         phase_build()
         card_name = card.split(",")[0].strip()
-        rows, worst = phase_kernels(card_name)
-        t0 = time.perf_counter()
-        u, ow = make_water(RDF_WATERS, RDF_BOX, RDF_FRAMES)
-        print(f"water system: {u.atoms.n_atoms} atoms x {RDF_FRAMES} "
-              f"frames, built in {time.perf_counter() - t0:.1f} s")
-        ph_rows, ph_worst = phase_pair_histogram(card_name, ow)
-        launches, u_e2e, rmsf_e2e = phase_end_to_end(card)
-        launches += phase_store(card, u_e2e)
-        ph_launches = phase_rdf(card, u, ow, ph_rows["main"])
-        phase_rmsd(card, u_e2e)
-        multi_launches, t_multi = phase_multi(card, u_e2e, rmsf_e2e)
-        launches += multi_launches
-        print(f"multi-device phase: {t_multi:.1f} s, fused launches "
-              f"{multi_launches}")
-        scan_launches, scan_ph = phase_scan(card, u_e2e, u, ow)
-        launches += scan_launches
-        ph_launches += scan_ph
-        phase_analyses(card, u_e2e, u, ow)
+        u = ow = u_e2e = None
+        if phases & WATER_PHASES:
+            t0 = time.perf_counter()
+            u, ow = make_water(RDF_WATERS, RDF_BOX, RDF_FRAMES)
+            print(f"water system: {u.atoms.n_atoms} atoms x {RDF_FRAMES} "
+                  f"frames, built in {time.perf_counter() - t0:.1f} s")
+        if 3 in phases:
+            rows, worst = phase_kernels(card_name)
+            ph_rows, ph_worst = phase_pair_histogram(card_name, ow)
+        if 4 in phases:
+            launches, u_e2e, rmsf_e2e = phase_end_to_end(card)
+        if 8 in phases:
+            launches += phase_store(card, u_e2e)
+        if 5 in phases:
+            ph_launches += phase_rdf(card, u, ow, ph_rows["main"])
+        if 6 in phases:
+            phase_rmsd(card, u_e2e)
+        if 9 in phases:
+            multi_launches, t_multi = phase_multi(card, u_e2e, rmsf_e2e)
+            launches += multi_launches
+            print(f"multi-device phase: {t_multi:.1f} s, fused launches "
+                  f"{multi_launches}")
+        if 10 in phases:
+            scan_launches, scan_ph = phase_scan(card, u_e2e, u, ow)
+            launches += scan_launches
+            ph_launches += scan_ph
+        if 12 in phases:
+            phase_analyses(card, u_e2e, u, ow)
+        if 13 in phases:
+            phase_remaining(card, u, ow)
         del u, ow, u_e2e
-        phase_configs(card)
-        phase_neighbours(card)
+        if 7 in phases:
+            phase_configs(card)
+        if 11 in phases:
+            phase_neighbours(card)
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", file=sys.stderr)
         return 1
@@ -3169,11 +3669,19 @@ def main(argv=None):
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": None}
 
-    print(json.dumps({"kernels": [
-        entry(KERNEL_NAME, KERNEL_SOURCE, KERNEL_REPLACES, launches, worst,
-              rows["main-int16"]),
-        entry(PH_NAME, PH_SOURCE, PH_REPLACES, ph_launches, ph_worst,
-              ph_rows["main"])]}))
+    if rows is None:
+        print("kernel table: not printed (phase 3, which measures the "
+              "kernels against their plain versions, was not selected)")
+    else:
+        print(json.dumps({"kernels": [
+            entry(KERNEL_NAME, KERNEL_SOURCE, KERNEL_REPLACES,
+                  main_path_launches(KERNEL_NAME, launches, FUSED_PHASES,
+                                     phases),
+                  worst, rows["main-int16"]),
+            entry(PH_NAME, PH_SOURCE, PH_REPLACES,
+                  main_path_launches(PH_NAME, ph_launches, PH_PHASES,
+                                     phases),
+                  ph_worst, ph_rows["main"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,9 +11,16 @@ and ``optimize_cutoff`` (leaflet), ``RadiusOfGyration`` (rgyr),
 (bat), ``GNMAnalysis`` (gnm), ``PersistenceLength`` (polymer),
 ``HELANAL`` and ``helix_analysis`` (helix), ``DSSP`` (dssp),
 ``Density`` and ``DensityAnalysis`` (density), ``LinearDensity``
-(lineardensity), on the ``AnalysisBase`` template with the generic
-``AnalysisFromFunction``, ``analysis_class`` and ``AnalysisCollection``
-(N analyses over one staged trajectory pass) (base)."""
+(lineardensity), ``DistanceMatrix`` and ``DiffusionMap``
+(diffusionmap), ``PSAnalysis``, ``hausdorff`` and ``discrete_frechet``
+(psa), ``hes``, ``ces`` and ``dres`` (encore), ``SurvivalProbability``,
+``WaterOrientationalRelaxation``, ``AngularDistribution`` and
+``MeanSquareDisplacement`` (waterdynamics), ``DielectricConstant``
+(dielectric), ``VelocityAutocorr`` (vacf), ``WaterBridgeAnalysis``
+(waterbridge) and the ``nuclinfo`` functions, on the ``AnalysisBase``
+template with the generic ``AnalysisFromFunction``, ``analysis_class``
+and ``AnalysisCollection`` (N analyses over one staged trajectory pass)
+(base): every analysis the JAX package exports."""
 
 from mdanalysis_mpi_tpu_torch.analysis.align import (AlignTraj,
                                                      AverageStructure,
@@ -27,11 +34,15 @@ from mdanalysis_mpi_tpu_torch.analysis.base import (
 from mdanalysis_mpi_tpu_torch.analysis.bat import BAT
 from mdanalysis_mpi_tpu_torch.analysis.contacts import Contacts
 from mdanalysis_mpi_tpu_torch.analysis.density import Density, DensityAnalysis
+from mdanalysis_mpi_tpu_torch.analysis.dielectric import DielectricConstant
+from mdanalysis_mpi_tpu_torch.analysis.diffusionmap import (DiffusionMap,
+                                                            DistanceMatrix)
 from mdanalysis_mpi_tpu_torch.analysis.dihedrals import (Dihedral, Janin,
                                                          Ramachandran)
 from mdanalysis_mpi_tpu_torch.analysis.distances import (ContactMap,
                                                          PairwiseDistances)
 from mdanalysis_mpi_tpu_torch.analysis.dssp import DSSP
+from mdanalysis_mpi_tpu_torch.analysis.encore import ces, dres, hes
 from mdanalysis_mpi_tpu_torch.analysis.gnm import GNMAnalysis
 from mdanalysis_mpi_tpu_torch.analysis.hbonds import HydrogenBondAnalysis
 from mdanalysis_mpi_tpu_torch.analysis.helix import HELANAL, helix_analysis
@@ -43,9 +54,17 @@ from mdanalysis_mpi_tpu_torch.analysis.nucleicacids import (NucPairDist,
                                                             WatsonCrickDist)
 from mdanalysis_mpi_tpu_torch.analysis.pca import PCA, cosine_content
 from mdanalysis_mpi_tpu_torch.analysis.polymer import PersistenceLength
+from mdanalysis_mpi_tpu_torch.analysis.psa import (PSAnalysis,
+                                                   discrete_frechet,
+                                                   hausdorff)
 from mdanalysis_mpi_tpu_torch.analysis.rdf import InterRDF, InterRDF_s
 from mdanalysis_mpi_tpu_torch.analysis.rgyr import RadiusOfGyration
 from mdanalysis_mpi_tpu_torch.analysis.rms import RMSD, RMSF, AlignedRMSF, rmsd
+from mdanalysis_mpi_tpu_torch.analysis.vacf import VelocityAutocorr
+from mdanalysis_mpi_tpu_torch.analysis.waterbridge import WaterBridgeAnalysis
+from mdanalysis_mpi_tpu_torch.analysis.waterdynamics import (
+    AngularDistribution, MeanSquareDisplacement, SurvivalProbability,
+    WaterOrientationalRelaxation)
 
 __all__ = ["AnalysisBase", "AnalysisCollection", "AnalysisFromFunction",
            "Results", "UncoalescableAnalysisError", "analysis_class",
@@ -57,4 +76,9 @@ __all__ = ["AnalysisBase", "AnalysisCollection", "AnalysisFromFunction",
            "RadiusOfGyration", "PCA", "cosine_content", "EinsteinMSD",
            "Dihedral", "Ramachandran", "Janin", "BAT", "GNMAnalysis",
            "PersistenceLength", "HELANAL", "helix_analysis", "DSSP",
-           "Density", "DensityAnalysis", "LinearDensity"]
+           "Density", "DensityAnalysis", "LinearDensity", "DistanceMatrix",
+           "DiffusionMap", "PSAnalysis", "hausdorff", "discrete_frechet",
+           "hes", "ces", "dres", "SurvivalProbability",
+           "WaterOrientationalRelaxation", "AngularDistribution",
+           "MeanSquareDisplacement", "DielectricConstant",
+           "VelocityAutocorr", "WaterBridgeAnalysis"]

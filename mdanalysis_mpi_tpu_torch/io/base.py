@@ -463,9 +463,7 @@ class ReaderBase:
         ts = self._emit(ts)
         auxs = self.auxiliaries
         if auxs:
-            raise NotImplementedError(
-                "auxiliary series are not ported yet (the port's "
-                "auxiliary slice comes later)")
+            from mdanalysis_mpi_tpu_torch.auxiliary import AuxHolder
 
             ts.aux = AuxHolder(
                 {name: aux.value_at(ts.time, cutoff)

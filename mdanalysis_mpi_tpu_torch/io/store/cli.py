@@ -1,6 +1,6 @@
-"""``ingest_main(argv)`` — the store's command-line surface (the port has
-no ``__main__`` yet, ROADMAP A10; call ``ingest_main(["TRAJ", "--out",
-"DIR"])``, or run this file as a script).
+"""``ingest_main(argv)`` — the store's command-line surface:
+``python -m mdanalysis_mpi_tpu_torch ingest TRAJ --out DIR``, or
+``ingest_main(["TRAJ", "--out", "DIR"])``, or run this file as a script.
 
 Ingest-once: re-chunk a trajectory into the block store
 (docs/STORE.md), then point every later run at the store directory

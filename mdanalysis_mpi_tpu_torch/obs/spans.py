@@ -216,7 +216,9 @@ class _Span:
         if not st.enabled:          # disabled mid-span: drop silently
             return False
         th = threading.current_thread()
-        tid = th.ident or 0
+        # the kernel's thread id: ``th.ident`` is a stack address that
+        # the next thread started may reuse at once, merging two rows
+        tid = th.native_id or 0
         ev = {"ph": "X", "cat": "mdtpu", "name": self.name,
               "ts": round((self._t0 - st.t0) * 1e6, 1),
               "dur": round((t1 - self._t0) * 1e6, 1),
@@ -255,7 +257,7 @@ def span(name: str, **args):
 def _instant(name: str, args: dict, cat: str) -> None:
     st = _STATE
     th = threading.current_thread()
-    tid = th.ident or 0
+    tid = th.native_id or 0
     ev = {"ph": "i", "cat": cat, "name": name, "s": "t",
           "ts": round((time.perf_counter() - st.t0) * 1e6, 1),
           "pid": _PID, "tid": tid}

@@ -38,14 +38,12 @@ def weighted_center(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...ni,n->...i", x, w)
 
 
-def qcp_rotation(h):
-    """QCP rotation solve, elementwise over tensors of any shape: ``h``
-    is the nine correlation entries ``[h00..h22]`` (H = mobileᵀ·ref,
-    weights folded in); returns the nine rotation entries R00..R22 with
-    ``aligned = mobile @ R`` (the torch version of the JAX package's
-    ``pallas_fused._qcp_rotation``, same constants: Frobenius
-    normalisation, 40 Newton steps from ``sqrt(3·tr HᵀH)``, the
-    max-norm adjugate row, identity for a degenerate frame)."""
+def _qcp_top_eigenvalue(h):
+    """The QCP quartic's largest root for the nine correlation entries
+    ``h``, elementwise: returns ``(k, lam, fro)`` with ``k`` the ten
+    distinct entries of the 4x4 key matrix of the Frobenius-normalised
+    H, ``lam`` its top eigenvalue (40 Newton steps from
+    ``sqrt(3·tr HᵀH)``) and ``fro`` the norm divided out."""
     h00, h01, h02, h10, h11, h12, h20, h21, h22 = h
 
     trHH_raw = (h00 * h00 + h01 * h01 + h02 * h02
@@ -98,6 +96,29 @@ def qcp_rotation(h):
         dp = torch.where(torch.abs(dp) < 1e-30,
                          torch.full_like(dp, 1e-30), dp)
         lam = lam - p / dp
+    return (k00, k01, k02, k03, k11, k12, k13, k22, k23, k33), lam, fro
+
+
+def qcp_max_eigenvalue(h):
+    """``σ1 + σ2 + d·σ3`` of the correlation H (its singular values,
+    ``d`` the sign of det H), elementwise over the nine entries ``h``:
+    the top eigenvalue of the QCP key matrix, by the same solve as
+    :func:`qcp_rotation`.  A superposed weighted RMSD is then
+    ``sqrt(max(e0 − 2·λ, 0) / Σw)`` with no rotation built."""
+    _, lam, fro = _qcp_top_eigenvalue(h)
+    return lam * fro
+
+
+def qcp_rotation(h):
+    """QCP rotation solve, elementwise over tensors of any shape: ``h``
+    is the nine correlation entries ``[h00..h22]`` (H = mobileᵀ·ref,
+    weights folded in); returns the nine rotation entries R00..R22 with
+    ``aligned = mobile @ R`` (the torch version of the JAX package's
+    ``pallas_fused._qcp_rotation``, same constants: Frobenius
+    normalisation, 40 Newton steps from ``sqrt(3·tr HᵀH)``, the
+    max-norm adjugate row, identity for a degenerate frame)."""
+    (k00, k01, k02, k03, k11, k12, k13, k22, k23,
+     k33), lam, _ = _qcp_top_eigenvalue(h)
 
     a00 = k00 - lam
     a11 = k11 - lam

@@ -31,26 +31,41 @@ def minimum_image(disp: torch.Tensor, box) -> torch.Tensor:
     wrap where L = 0); triclinic boxes go through fractional coordinates
     of the box matrix; a box with no positive length leaves ``disp``
     as it is.
+
+    ``box`` may also be a ``(B, 6)`` stack (any leading dimensions) with
+    ``disp`` ``(B, ..., 3)``: each frame is then wrapped under its own
+    box, as this function would wrap it alone (a batch function's whole
+    batch at once).
     """
     if box is None:
         return disp
     box = torch.as_tensor(box, dtype=disp.dtype, device=disp.device)
-    lengths = box[..., :3]
-    has_box = (lengths > 0).any()
-    ortho = ((box[..., 3:] - 90.0).abs() < 1e-4).all()
+    lead = box.shape[:-1]
+    # each box value reaches disp's rank: (*lead, 1, ..., 1, k)
+    lift = lead + (1,) * (disp.dim() - 1 - len(lead))
 
+    def to_disp(x):
+        return x.reshape(lift + x.shape[-1:])
+
+    lengths = box[..., :3]
+    has_box = to_disp((lengths > 0).any(-1, keepdim=True))
+    ortho = to_disp(((box[..., 3:] - 90.0).abs() < 1e-4).all(
+        -1, keepdim=True))
+
+    lengths = to_disp(lengths)
     safe = torch.where(lengths > 0, lengths, torch.ones_like(lengths))
     shift = torch.round(disp / safe) * safe
     wrapped_ortho = torch.where(lengths > 0, disp - shift, disp)
 
-    m = box_to_matrix(box)                       # (3,3) lower tri
+    m = box_to_matrix(box)                       # (..., 3, 3) lower tri
     # guard the inverse so a degenerate box cannot inject NaNs
     eye = torch.eye(3, dtype=m.dtype, device=m.device)
-    safe_m = m + eye * (m[0, 0].abs() < 1e-9).to(m.dtype)
+    safe_m = m + eye * (m[..., :1, :1].abs() < 1e-9).to(m.dtype)
     inv = torch.linalg.inv_ex(safe_m).inverse
-    frac = disp @ inv
+    flat = disp.reshape(lead + (-1, 3))
+    frac = flat @ inv
     frac = frac - torch.round(frac)
-    wrapped_tric = frac @ m
+    wrapped_tric = (frac @ m).reshape(disp.shape)
 
     return torch.where(has_box, torch.where(ortho, wrapped_ortho,
                                             wrapped_tric), disp)

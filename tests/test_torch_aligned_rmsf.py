@@ -133,7 +133,12 @@ def test_pass2_reads_pass1_blocks_from_the_cache(u56):
 def test_fused_run_is_bit_reproducible(u56):
     run = dict(backend="torch", device="cpu", batch_size=16,
                transfer_dtype="int16")
+    # both runs start from the same adaptive int16 scale hints (the
+    # reader keeps them from one run to the next), so they stage the
+    # same bytes
+    u56.trajectory.__dict__.pop("_quant_max_hints", None)
     a = AlignedRMSF(u56, select=SEL, engine="fused").run(**run)
+    u56.trajectory.__dict__.pop("_quant_max_hints", None)
     b = AlignedRMSF(u56, select=SEL, engine="fused").run(**run)
     np.testing.assert_array_equal(a.results.rmsf, b.results.rmsf)
 

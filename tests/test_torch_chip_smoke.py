@@ -1,0 +1,54 @@
+"""The phase selection of ``chip_smoke.py`` and the launch counts of its
+kernel table line, on the CPU (the phases themselves need a card)."""
+
+import os
+import sys
+
+import pytest
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import chip_smoke  # noqa: E402
+
+
+def test_no_argument_selects_every_phase():
+    assert chip_smoke.select_phases([]) == set(chip_smoke.PHASE_ORDER)
+
+
+def test_a_selection_always_adds_device_and_build():
+    assert chip_smoke.select_phases(["--phases", "3,4,13"]) == {
+        1, 2, 3, 4, 13}
+
+
+@pytest.mark.parametrize("arg, missing", [("6", 4), ("8,13", 4),
+                                          ("5", 3), ("3,10", 4)])
+def test_a_selection_without_a_needed_phase_is_refused(arg, missing):
+    with pytest.raises(ValueError, match=f"select phase {missing} too"):
+        chip_smoke.select_phases(["--phases", arg])
+
+
+@pytest.mark.parametrize("argv", [["--phases", "99"], ["--phases", "a"],
+                                  ["--fast"], ["--phases"]])
+def test_bad_arguments_are_refused(argv):
+    with pytest.raises(ValueError):
+        chip_smoke.select_phases(argv)
+
+
+@pytest.mark.parametrize("kernel_phases", [chip_smoke.FUSED_PHASES,
+                                           chip_smoke.PH_PHASES])
+def test_launches_count_only_when_the_whole_main_path_ran(kernel_phases,
+                                                          capsys):
+    every = set(chip_smoke.PHASE_ORDER)
+    assert chip_smoke.main_path_launches("k", 7, kernel_phases, every) == 7
+    assert capsys.readouterr().out == ""
+    part = chip_smoke.select_phases(["--phases", "3,4,13"])
+    assert chip_smoke.main_path_launches("k", 0, kernel_phases,
+                                         part) is None
+    assert "null" in capsys.readouterr().out
+
+
+def test_every_launching_phase_is_a_phase():
+    order = set(chip_smoke.PHASE_ORDER)
+    assert set(chip_smoke.FUSED_PHASES) <= order
+    assert set(chip_smoke.PH_PHASES) <= order

@@ -28,7 +28,11 @@ JAX, so it runs on a GPU machine that has no JAX:
 Also the torch-op paths of neighbour search on the card (no hand
 kernel): the cell list against the host grid, ``self_pair_counts``, the
 default device resolving to ``cuda``, and the HBond batch path against
-the serial oracle and under a replayed graph.
+the serial oracle and under a replayed graph; and the torch-op routes
+of slice 11: the pair-RMSD matrix (DistanceMatrix, encore) against its
+CPU run, the Fréchet wavefront against the host recurrence on the
+card's own cross matrix, WOR's device lag sums and DielectricConstant
+on the card and its mesh against serial.
 """
 
 import numpy as np
@@ -1008,3 +1012,94 @@ def test_cuda_bat_and_polymer_match_serial():
     s = PersistenceLength(chains).run(backend="serial")
     np.testing.assert_allclose(p.results.bond_autocorrelation,
                                s.results.bond_autocorrelation, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_pairwise_rmsd_matches_cpu_run():
+    """The device pair-RMSD matrix (row blocks of float64 products and
+    the QCP top eigenvalue) on the card against the same function on
+    the CPU (1e-9 Å off the diagonal: one float64 algebra, only the
+    products' blocking differs; a frame against itself is the square
+    root of e0 − 2λ's rounding, ~1e-7 Å either way, and DistanceMatrix
+    zeroes it), and DistanceMatrix on the card against serial (5e-3 Å,
+    tests/test_diffusionmap.py)."""
+    from mdanalysis_mpi_tpu_torch.analysis import DistanceMatrix
+    from mdanalysis_mpi_tpu_torch.analysis.diffusionmap import (
+        pairwise_rmsd_device)
+    from mdanalysis_mpi_tpu_torch.testing import make_protein_universe
+
+    _card()
+    rng = np.random.default_rng(6)
+    pos = _t(rng.normal(scale=6.0, size=(150, 120, 3)).astype(np.float32))
+    w = rng.uniform(1.0, 16.0, 120)
+    got = pairwise_rmsd_device(pos.cuda(), w).cpu().numpy()
+    want = pairwise_rmsd_device(pos, w).numpy()
+    assert np.abs(np.diag(got)).max() <= 1e-5
+    np.fill_diagonal(got, 0.0)
+    np.fill_diagonal(want, 0.0)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
+    u = make_protein_universe(n_residues=40, n_frames=64, noise=0.4, seed=2)
+    d = DistanceMatrix(u, select="name CA").run(
+        backend="torch", device="cuda", batch_size=16).results.dist_matrix
+    s = DistanceMatrix(u, select="name CA").run(
+        stop=64, backend="serial").results.dist_matrix
+    np.testing.assert_allclose(d, s, atol=5e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_frechet_wavefront_equals_host_recurrence():
+    """On the card's own float32 cross matrices: the wavefront EQUAL to
+    the host recurrence (only min and max), Hausdorff equal to the host
+    reduction of the same matrix."""
+    from mdanalysis_mpi_tpu_torch.analysis.psa import (
+        _frechet_np, cross_rmsd, frechet_wavefront, hausdorff_from_cross)
+
+    dev = _card()
+    rng = np.random.default_rng(9)
+    p = _t(np.cumsum(rng.normal(scale=0.3, size=(3, 96, 40, 3)),
+                     axis=1).astype(np.float32)).to(dev)
+    q = _t(np.cumsum(rng.normal(scale=0.3, size=(3, 71, 40, 3)),
+                     axis=1).astype(np.float32)).to(dev)
+    m = cross_rmsd(p, q)
+    got = frechet_wavefront(m).cpu().numpy()
+    haus = hausdorff_from_cross(m).cpu().numpy()
+    mh = m.cpu().numpy()
+    for k in range(3):
+        assert float(got[k]) == _frechet_np(mh[k])
+        assert float(haus[k]) == max(mh[k].min(axis=1).max(),
+                                     mh[k].min(axis=0).max())
+
+
+@pytest.mark.cuda
+def test_cuda_water_and_dielectric_match_serial():
+    """WOR (device lag sums) within 1e-5 and AngularDistribution within
+    1e-4 of serial; DielectricConstant on the card and on the mesh over
+    it within 1e-3 relative of serial (tests/test_dielectric.py)."""
+    from mdanalysis_mpi_tpu_torch.analysis import (
+        AngularDistribution, DielectricConstant,
+        WaterOrientationalRelaxation)
+    from mdanalysis_mpi_tpu_torch.testing import make_water_universe
+
+    _card()
+    kw = dict(backend="torch", device="cuda", batch_size=8)
+    u = make_water_universe(n_waters=300, n_frames=24, seed=5)
+    w = WaterOrientationalRelaxation(u, "name OW", dtmax=8)
+    np.testing.assert_allclose(
+        w.run(**kw).results.timeseries,
+        WaterOrientationalRelaxation(u, "name OW", dtmax=8).run(
+            backend="serial").results.timeseries, atol=1e-5)
+    a = AngularDistribution(u, "name OW", bins=20).run(**kw).results
+    s = AngularDistribution(u, "name OW", bins=20).run(
+        backend="serial").results
+    for key in ("OH", "HH", "dip"):
+        np.testing.assert_allclose(getattr(a, key), getattr(s, key),
+                                   atol=1e-4)
+    u.add_TopologyAttr("charges", np.tile([-0.834, 0.417, 0.417], 300))
+    want = DielectricConstant(u.atoms, make_whole=False).run(
+        backend="serial").results.eps_mean
+    for run in (kw, dict(backend="mesh", devices=["cuda:0"] * 2,
+                         batch_size=4)):
+        got = DielectricConstant(u.atoms, make_whole=False).run(
+            **run).results.eps_mean
+        np.testing.assert_allclose(got, want, rtol=1e-3)
+
