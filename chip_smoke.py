@@ -9,16 +9,16 @@ Run from the root of a checkout, with no arguments::
 That runs every phase.  ``--phases 3,4,13`` runs a comma list of them
 instead (phases 1 and 2 always run; every check within a selected phase
 stays).  A phase that needs what an earlier phase builds either builds
-it itself (the water box of phases 3, 5, 10, 12 and 13; phase 13's
+it itself (the water box of phases 3, 5, 10, 12, 13 and 14; phase 13's
 PSF/DCD) or refuses the selection with a message and exit code 2:
-phases 6, 8, 9, 10 and 12 run on phase 4's system and result, so they
-need 4; phase 5 compares with phase 3's main case, so it needs 3.  The
-kernel table line needs phase 3's timings: without phase 3 the script
-says so in its place.  A kernel's ``launches`` there is the count of its
-whole main path, so it is null unless every phase that launches it on
-that path ran (the fused kernel: 4, 8, 9, 10; the pair histogram: 5,
-10); the counts of the phases that did run are printed on a line of
-their own.
+phases 6, 8, 9, 10, 12 and 14 run on phase 4's system and result, so
+they need 4; phase 5 compares with phase 3's main case, so it needs 3.
+The kernel table line needs phase 3's timings: without phase 3 the
+script says so in its place.  A kernel's ``launches`` there is the
+count of its whole main path, so it is null unless every phase that
+launches it on that path ran (the fused kernel: 4, 8, 14, 9, 10; the
+pair histogram: 5, 10); the counts of the phases that did run are
+printed on a line of their own.
 
 Phases (each prints its own lines; any failure exits non-zero and
 prints no ok line):
@@ -105,12 +105,13 @@ prints no ok line):
    each run's wall and frames/s.
 8. Config 2 from an XTC and from an int16 block store (run right after
    phase 4, on its system): the 2,048 frames written as an XTC with
-   ``io/xtc.write_xtc`` in 512-frame pieces (box 120 Å), ingested with
-   ``io/store.ingest(chunk_frames=512, quant='int16')`` (one chunk a
-   staged block; no chunk may overflow the store-wide scale), both in a
-   temporary directory the phase deletes (it fails if fewer than 3 GB
-   are free there).  The XTC leg runs ``AlignedRMSF(Universe(top, xtc),
-   select='heavy', engine='fused')``, int16, batch 512, and is held to
+   ``io/writer.TrajectoryWriter`` in 512-frame pieces (box 120 Å),
+   ingested with ``io/store.ingest(chunk_frames=512, quant='int16')``
+   (one chunk a staged block; no chunk may overflow the store-wide
+   scale), both in a temporary directory the phase deletes (it fails if
+   fewer than 3 GB are free there).  The XTC leg runs
+   ``AlignedRMSF(Universe(top, xtc), select='heavy', engine='fused')``,
+   int16, batch 512, and is held to
    the serial float64 oracle on the decoded coordinates over 32 frames
    within 1e-3 Å.  The store leg runs the same from ``Universe(top,
    store_dir)``, then again from a new Universe on a side stream
@@ -124,6 +125,33 @@ prints no ok line):
    between the legs (not gated), and the time of one chunk's backend
    read, decode with its CRC checks, gather and planar repack, and
    pinned copy to the card.
+
+14. Config 2 from a GROMACS TRR and from an AMBER PRMTOP + NetCDF (run
+   right after phase 8, on phase 4's system and RMSF; the readers and
+   writers of ROADMAP A8 item 4).  Phase 4's 2,048 frames are written
+   with ``io/writer.TrajectoryWriter`` in 512-frame pieces (box 120 Å)
+   as a TRR (about 2.46 GB: float32 nm) and, after that file is run and
+   deleted, as a NetCDF (float32 Å); the PRMTOP comes from
+   ``io/prmtop.write_prmtop`` of phase 4's universe.  It fails if fewer
+   than 2.6 GB of temporary disk are free.  (a) ``Universe(top, trr)``
+   and (b) ``Universe(prmtop, nc)`` (whose ``select_atoms('heavy')``
+   must give phase 4's 50,000 indices) each run
+   ``AlignedRMSF(select='heavy', engine='fused')``, int16, batch 512:
+   the kernel's count must rise in both passes; the RMSF must agree
+   with ``engine=None`` on the same reader within 5e-4 Å, over 32
+   frames with the serial float64 oracle on the decoded coordinates
+   within 1e-3 Å, and with phase 4's RMSF within 1e-3 Å (the largest
+   difference is printed, and whether it is 0: NetCDF holds float32 Å
+   exactly, TRR goes through float32 nm); a repeat from a new Universe
+   over the file must be bit-identical.  (c) Phase 13's VelocityAutocorr
+   input (256 frames of AR(1) velocities of 98,304 atoms) written with
+   ``velocities=`` to a TRR and to a NetCDF (128-frame pieces, about
+   0.6 GB each): each file's run within 1e-3 of the largest |C| of the
+   in-memory run, its timeseries within 1e-3 relative where |C| >= 1e-2
+   C(0), and a repeat bit-identical.  Prints each file's bytes and write
+   time, each run's wall, pass split and launches, the host decode of
+   one block, and every error beside its limit; the phase's fused
+   launches (both legs' first runs) join the kernel table's count.
 
 9. Streaming and several devices (run after phase 6, on phase 4's
    system). (a) Phase 4's main path (fused int16, B = 512 a shard) on
@@ -384,6 +412,12 @@ ALIGN_FRAMES = 256
 # temporary directory.
 STORE_BOX = np.array([120.0, 120.0, 120.0, 90.0, 90.0, 90.0])
 STORE_DISK_BYTES = 3_000_000_000
+# Phase 14: phase 4's system as a GROMACS TRR and as an AMBER PRMTOP +
+# NetCDF (each ~2.46 GB of float32 frames in a 120 Å box, written, run
+# and deleted one after the other), then phase 13's VACF input as a TRR
+# and a NetCDF with velocities (~0.6 GB each), in a temporary directory.
+FILES_DISK_BYTES = 2_600_000_000
+VACF_CHUNK = 128
 # Phase 9: the mesh executor, two ranks, the ring RDF and streaming.
 # The ring runs a quarter of phase 5's box (8,192 waters at the same
 # density: 99.3 / 4^(1/3) Å); streaming ingests 1,024 of phase 4's
@@ -450,7 +484,7 @@ VACF_RTOL = 1e-3                     # test_vacf.py's elementwise rtol
 VACF_FLOOR = 1e-2                    # lags held to it: |C| >= this x C(0)
 CLI_TOL = 1e-5
 # every phase, in the order they run
-PHASE_ORDER = (1, 2, 3, 4, 8, 5, 6, 9, 10, 12, 13, 7, 11)
+PHASE_ORDER = (1, 2, 3, 4, 8, 14, 5, 6, 9, 10, 12, 13, 7, 11)
 
 
 class SmokeFailure(Exception):
@@ -1484,24 +1518,17 @@ def metric(name):
         name, {"values": {}})["values"].values())
 
 
-def write_frames_xtc(path, u, n_frames, chunk):
-    """The universe's frames as one XTC, written ``chunk`` frames at a
-    time (XTC frames are self-delimiting, so the pieces concatenate
-    byte-wise into one trajectory) → seconds."""
-    from mdanalysis_mpi_tpu_torch.io.xtc import write_xtc
+def write_pieces(path, u, n_frames, chunk):
+    """The universe's frames (box 120 Å) through the port's
+    ``TrajectoryWriter``, ``chunk`` frames a write → seconds."""
+    from mdanalysis_mpi_tpu_torch.io.writer import TrajectoryWriter
 
-    part = path + ".part"
     t0 = time.perf_counter()
-    with open(path, "wb") as out:
+    with TrajectoryWriter(path) as w:
         for lo in range(0, n_frames, chunk):
-            hi = min(lo + chunk, n_frames)
-            frames, _ = u.trajectory.read_block(lo, hi)
-            write_xtc(part, frames, dimensions=STORE_BOX,
-                      times=np.arange(lo, hi, dtype=np.float32),
-                      steps=np.arange(lo, hi, dtype=np.int32))
-            with open(part, "rb") as f:
-                out.write(f.read())
-    os.remove(part)
+            frames, _ = u.trajectory.read_block(lo, min(lo + chunk,
+                                                        n_frames))
+            w.write(frames, dimensions=STORE_BOX)
     return time.perf_counter() - t0
 
 
@@ -1588,9 +1615,9 @@ def phase_store(card, u):
               f"phase 8 needs {STORE_DISK_BYTES / 1e9:.1f} GB of temporary "
               f"disk at {tmp}; {free / 1e9:.1f} GB free")
         xtc = os.path.join(tmp, "config2.xtc")
-        wall_w = write_frames_xtc(xtc, u, n_frames, bs)
+        wall_w = write_pieces(xtc, u, n_frames, bs)
         print(f"store xtc: {n_frames} frames x {u.atoms.n_atoms} atoms "
-              f"written with io/xtc.write_xtc in {bs}-frame pieces: "
+              f"written with TrajectoryWriter in {bs}-frame pieces: "
               f"{wall_w:.2f} s, {os.path.getsize(xtc)} bytes")
         store = os.path.join(tmp, "config2.store")
         summary = ingest(xtc, store, chunk_frames=bs, quant="int16")
@@ -1701,6 +1728,178 @@ def phase_store(card, u):
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"store phase: {time.perf_counter() - t_phase:.1f} s")
     return lx + ls
+
+
+# ---------------------------------------------------------------- phase 14
+
+def file_rmsf_leg(card, label, open_universe, idx, rmsf_e2e):
+    """Phase 14 (a) or (b): config 2's fused int16 AlignedRMSF from the
+    universe ``open_universe()`` opens over a file, held to phase 8's
+    gates and to phase 4's RMSF, then again from a new Universe over
+    the same file (bit-identical) → (launches of the first run, its
+    largest difference from phase 4)."""
+    from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
+    from mdanalysis_mpi_tpu_torch.ops.fused_rmsf import pad_selection
+
+    n_frames, bs, n32, sel = E2E_FRAMES, E2E_BATCH, 32, "heavy"
+    run_kw = dict(backend="torch", device="cuda", batch_size=bs,
+                  transfer_dtype="int16")
+    t0 = time.perf_counter()
+    uf = open_universe()
+    t_open = time.perf_counter() - t0
+    got = uf.select_atoms(sel).indices
+    check(np.array_equal(got, idx),
+          f"{label}: select_atoms('heavy') gives {len(got)} atoms, not "
+          f"phase 4's {len(idx)}")
+    fx, wall, t1, p1, lx = fused_passes(lambda: AlignedRMSF(
+        uf, select=sel, engine="fused").run(**run_kw))
+    check(p1 > 0 and lx - p1 > 0,
+          f"{label} launches: pass1={p1} pass2={lx - p1}")
+    rmsf = fx.results.rmsf
+    check(rmsf.shape == (len(idx),) and np.isfinite(rmsf).all(),
+          f"{label} RMSF shape {rmsf.shape} / non-finite values")
+    generic = AlignedRMSF(uf, select=sel).run(**run_kw)
+    err_g = float(np.abs(rmsf - generic.results.rmsf).max())
+    oracle = AlignedRMSF(uf, select=sel).run(stop=n32, backend="serial")
+    f32 = AlignedRMSF(uf, select=sel, engine="fused").run(stop=n32,
+                                                          **run_kw)
+    err_o = float(np.abs(f32.results.rmsf - oracle.results.rmsf).max())
+    err_4 = float(np.abs(rmsf - rmsf_e2e).max())
+    # one 512-frame block's host decode alone (the reader's read_block)
+    sel_p = pad_selection(idx)[0]
+    t0 = time.perf_counter()
+    uf.trajectory.read_block(bs, 2 * bs, sel=sel_p)
+    t_block = time.perf_counter() - t0
+    uf.trajectory.close()
+    del uf, fx, generic, f32
+    print(f"files {label}: AlignedRMSF(engine='fused') int16 B={bs}: "
+          f"{leg_text(n_frames, wall, t1, p1, lx)}; opened in "
+          f"{t_open:.2f} s; host decode of one {bs}-frame block "
+          f"{t_block:.3f} s; vs engine=None on the file ({n_frames} "
+          f"frames) {err_g:.3g} (limit 5e-4); vs serial oracle on the "
+          f"decoded coordinates ({n32} frames) {err_o:.3g} (limit 1e-3); "
+          f"vs phase 4's RMSF {err_4:.3g} (limit 1e-3; exactly 0: "
+          f"{err_4 == 0.0}) on {card}")
+    check(err_g <= 5e-4, f"{label} fused vs generic {err_g:.3g}")
+    check(err_o <= 1e-3, f"{label} vs oracle {err_o:.3g}")
+    check(err_4 <= 1e-3, f"{label} vs phase 4 {err_4:.3g}")
+    again, wall2, t2, p2, l2 = fused_passes(lambda: AlignedRMSF(
+        open_universe(), select=sel, engine="fused").run(**run_kw))
+    check(np.array_equal(rmsf, again.results.rmsf),
+          f"{label} repeat on a new Universe not bit-identical")
+    check(p2 > 0 and l2 - p2 > 0,
+          f"{label} repeat launches: pass1={p2} pass2={l2 - p2}")
+    print(f"files {label} repeat (a new Universe over the file): "
+          f"{leg_text(n_frames, wall2, t2, p2, l2)}; bit-identical")
+    return lx, err_4
+
+
+def vacf_file_legs(card, uw, tmp):
+    """Phase 14 (c): phase 13's VACF input written with velocities to a
+    TRR and to a NetCDF (``TrajectoryWriter``, VACF_CHUNK frames a
+    write), each run against the in-memory run under phase 13's
+    gates."""
+    from mdanalysis_mpi_tpu_torch import Universe
+    from mdanalysis_mpi_tpu_torch.analysis import VelocityAutocorr
+    from mdanalysis_mpi_tpu_torch.io.memory import MemoryReader
+    from mdanalysis_mpi_tpu_torch.io.writer import TrajectoryWriter
+
+    n_at = uw.atoms.n_atoms
+    vel = ar1_velocities(n_at)
+    zeros = np.zeros((VACF_FRAMES, n_at, 3), np.float32)
+
+    def run(open_universe):
+        r = VelocityAutocorr(open_universe().atoms).run(backend="torch",
+                                                        device="cuda")
+        return np.asarray(r.results.vacf_by_particle)
+
+    want, wall_m = timed(lambda: run(lambda: Universe(
+        uw.topology, MemoryReader(zeros, velocities=vel))))
+    ts_want = want.mean(axis=1)
+    lags = np.abs(ts_want) >= VACF_FLOOR * abs(ts_want[0])
+    for ext in ("trr", "nc"):
+        path = os.path.join(tmp, f"vacf.{ext}")
+        t0 = time.perf_counter()
+        with TrajectoryWriter(path) as w:
+            for lo in range(0, VACF_FRAMES, VACF_CHUNK):
+                w.write(zeros[lo:lo + VACF_CHUNK],
+                        velocities=vel[lo:lo + VACF_CHUNK])
+        t_w = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        by, wall = timed(lambda: run(lambda: Universe(uw.topology, path)))
+        by2, wall2 = timed(lambda: run(lambda: Universe(uw.topology,
+                                                        path)))
+        check(same(by, by2), f"VACF from {ext}: repeat not bit-identical")
+        err = float(np.abs(by - want).max() / np.abs(want).max())
+        ts_got = by.mean(axis=1)
+        rel = float((np.abs(ts_got - ts_want)[lags]
+                     / np.abs(ts_want[lags])).max())
+        os.remove(path)
+        print(f"files (c) VelocityAutocorr from {ext}: {n_at} atoms x "
+              f"{VACF_FRAMES} frames, {size} bytes written in {t_w:.2f} "
+              f"s; wall {wall:.3f} s (host frame reads included; the "
+              f"in-memory run {wall_m:.3f} s), repeat {wall2:.3f} s "
+              f"bit-identical; vs the in-memory run: max |d| / max |C| "
+              f"{err:.3g} (limit 1e-3), timeseries over the "
+              f"{int(lags.sum())} of {lags.size} lags with |C| >= "
+              f"{VACF_FLOOR} C(0): max relative |d| {rel:.3g} (limit "
+              f"{VACF_RTOL}) on {card}")
+        check(err <= 1e-3, f"VACF from {ext}: {err:.3g} of the largest "
+              "|C| against the in-memory run (limit 1e-3)")
+        check(rel <= VACF_RTOL, f"VACF from {ext}: timeseries {rel:.3g} "
+              f"relative to the in-memory run (limit {VACF_RTOL})")
+
+
+def phase_files(card, u, rmsf_e2e, uw):
+    """Phase 14: config 2 from a GROMACS TRR and from an AMBER PRMTOP +
+    NetCDF, and VelocityAutocorr from both formats → the fused kernel's
+    launches in the two legs' first runs."""
+    import shutil
+    import tempfile
+
+    from mdanalysis_mpi_tpu_torch import Universe
+    from mdanalysis_mpi_tpu_torch.io.prmtop import write_prmtop
+
+    t_phase = time.perf_counter()
+    n_frames, bs = E2E_FRAMES, E2E_BATCH
+    top = u.topology
+    idx = u.select_atoms("heavy").indices
+    launches = 0
+    tmp = tempfile.mkdtemp(prefix="mdtpu_files_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        check(free >= FILES_DISK_BYTES,
+              f"phase 14 needs {FILES_DISK_BYTES / 1e9:.1f} GB of "
+              f"temporary disk at {tmp}; {free / 1e9:.1f} GB free")
+        prmtop = os.path.join(tmp, "config2.prmtop")
+        t0 = time.perf_counter()
+        write_prmtop(prmtop, u)
+        print(f"files: PRMTOP of {u.atoms.n_atoms} atoms written with "
+              f"io/prmtop.write_prmtop in {time.perf_counter() - t0:.2f} "
+              f"s, {os.path.getsize(prmtop)} bytes")
+        for label, ext, open_universe in (
+                ("(a) Universe(top, trr)", "trr",
+                 lambda p: Universe(top, p)),
+                ("(b) Universe(prmtop, nc)", "nc",
+                 lambda p: Universe(prmtop, p))):
+            path = os.path.join(tmp, f"config2.{ext}")
+            wall_w = write_pieces(path, u, n_frames, bs)
+            print(f"files {label}: {n_frames} frames x {u.atoms.n_atoms} "
+                  f"atoms written with TrajectoryWriter in {bs}-frame "
+                  f"pieces: {wall_w:.2f} s, {os.path.getsize(path)} bytes")
+            n, _ = file_rmsf_leg(card, label,
+                                 lambda: open_universe(path), idx,
+                                 rmsf_e2e)
+            launches += n
+            for leftover in os.listdir(tmp):
+                if leftover.startswith(f"config2.{ext}"):
+                    os.remove(os.path.join(tmp, leftover))
+        vacf_file_legs(card, uw, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"files phase: {time.perf_counter() - t_phase:.1f} s, fused "
+          f"launches {launches} on {card}")
+    return launches
 
 
 # ---------------------------------------------------------------- phase 9
@@ -3357,6 +3556,20 @@ def encore_leg(card, ca_frames):
               and v.max() <= LN2, f"{name}: {v} outside [0, ln 2]")
 
 
+def ar1_velocities(n_at):
+    """VACF_FRAMES frames of seeded AR(1) velocities of ``n_at`` atoms
+    (4 Å/ps, 0.9 a frame): phase 13's VelocityAutocorr input, written to
+    files in phase 14."""
+    rng = np.random.default_rng(13)
+    vel = np.empty((VACF_FRAMES, n_at, 3), np.float32)
+    v = rng.normal(scale=4.0, size=(n_at, 3))
+    for f in range(VACF_FRAMES):
+        v = 0.9 * v + np.sqrt(1.0 - 0.81) * rng.normal(scale=4.0,
+                                                       size=(n_at, 3))
+        vel[f] = v
+    return vel
+
+
 def water_legs(card, uw, ow):
     """Phase 13 (d): WOR, AngularDistribution, DielectricConstant and
     VelocityAutocorr on phase 5's water box."""
@@ -3428,13 +3641,7 @@ def water_legs(card, uw, ow):
 
     t0 = time.perf_counter()
     n_at = uw.atoms.n_atoms
-    rng = np.random.default_rng(13)
-    vel = np.empty((VACF_FRAMES, n_at, 3), np.float32)
-    v = rng.normal(scale=4.0, size=(n_at, 3))
-    for f in range(VACF_FRAMES):
-        v = 0.9 * v + np.sqrt(1.0 - 0.81) * rng.normal(scale=4.0,
-                                                       size=(n_at, 3))
-        vel[f] = v
+    vel = ar1_velocities(n_at)
     uv = Universe(uw.topology, MemoryReader(
         np.zeros((VACF_FRAMES, n_at, 3), np.float32), velocities=vel))
     t_build = time.perf_counter() - t0
@@ -3542,12 +3749,12 @@ def phase_remaining(card, uw, ow):
 
 
 #: phases that run on the water box built once for them
-WATER_PHASES = {3, 5, 10, 12, 13}
+WATER_PHASES = {3, 5, 10, 12, 13, 14}
 #: phases that launch each kernel on its main path
-FUSED_PHASES = (4, 8, 9, 10)
+FUSED_PHASES = (4, 8, 14, 9, 10)
 PH_PHASES = (5, 10)
 #: phases that run on what another phase builds → that phase
-NEEDS = {6: 4, 8: 4, 9: 4, 10: 4, 12: 4, 5: 3}
+NEEDS = {6: 4, 8: 4, 9: 4, 10: 4, 12: 4, 14: 4, 5: 3}
 NEEDS_WHY = {4: "phase 4's system and its RMSF",
              3: "phase 3's main pair-histogram case"}
 
@@ -3635,6 +3842,8 @@ def main(argv=None):
             launches, u_e2e, rmsf_e2e = phase_end_to_end(card)
         if 8 in phases:
             launches += phase_store(card, u_e2e)
+        if 14 in phases:
+            launches += phase_files(card, u_e2e, rmsf_e2e, u)
         if 5 in phases:
             ph_launches += phase_rdf(card, u, ow, ph_rows["main"])
         if 6 in phases:

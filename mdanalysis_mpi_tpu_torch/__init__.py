@@ -7,9 +7,13 @@ imports neither it nor JAX.  Layers, as in the JAX package:
 
 - :mod:`.core` — topology, selections, ``Universe``/``AtomGroup``
   (host side, copied from the JAX package).
-- :mod:`.io` — in-memory, XTC and DCD readers, multi-file chains, the
-  streaming trajectory writer, GRO, PSF and PDB topologies, the native
-  C++ codec, and the staging primitives that cut frame blocks into
+- :mod:`.io` — the JAX package's readers and writers: in-memory, XTC
+  and DCD (the native C++ codec), TRR, AMBER NetCDF, XYZ, the AMBER
+  ASCII and restart files, LAMMPS dumps and DL_POLY histories, block
+  stores and multi-file chains; GRO, PSF, PDB, PRMTOP, ITP/TOP, PQR,
+  MOL2, CRD, PDBQT, DMS, TXYZ and DL_POLY CONFIG topologies; the
+  streaming trajectory writer (``Writer``: XTC, TRR, DCD, NetCDF, XYZ);
+  and the staging primitives that cut frame blocks into
   int16/int8/delta wire formats (:mod:`.staging`).
 - :mod:`.ops` — superposition, RMSD and streaming-moment ops as
   PyTorch code, the serial float64 NumPy oracle (:mod:`.ops.host`), and the
@@ -40,3 +44,13 @@ __version__ = "0.1.0"
 
 __all__ = ["Universe", "Merge", "AtomGroup", "UpdatingAtomGroup",
            "Topology", "units", "__version__"]
+
+
+def __getattr__(name):
+    if name == "Writer":
+        # upstream `mda.Writer(filename, n_atoms)` factory, loaded lazily
+        from mdanalysis_mpi_tpu_torch.io.writer import Writer
+
+        return Writer
+    raise AttributeError(
+        f"module 'mdanalysis_mpi_tpu_torch' has no attribute {name!r}")

@@ -72,8 +72,7 @@ def _autoload():
     # every topology parser here is pure Python/NumPy: an ImportError
     # is a programming error and must surface — a swallowed one would
     # unregister EVERY format and misreport "no topology parser"
-    # the port carries GRO, PSF and PDB; the other parsers of the JAX
-    # package are ported in later slices
     from mdanalysis_mpi_tpu_torch.io import (  # noqa: F401  (self-register)
-        gro, pdb, psf)
+        crd, dlpoly, dms, gro, itp, mol2, pdb, pdbqt, pqr, prmtop, psf,
+        txyz)
     register("tpr", _tpr)

@@ -22,7 +22,8 @@ def test_a_selection_always_adds_device_and_build():
 
 
 @pytest.mark.parametrize("arg, missing", [("6", 4), ("8,13", 4),
-                                          ("5", 3), ("3,10", 4)])
+                                          ("5", 3), ("3,10", 4),
+                                          ("14", 4), ("3,8,14", 4)])
 def test_a_selection_without_a_needed_phase_is_refused(arg, missing):
     with pytest.raises(ValueError, match=f"select phase {missing} too"):
         chip_smoke.select_phases(["--phases", arg])
@@ -52,3 +53,17 @@ def test_every_launching_phase_is_a_phase():
     order = set(chip_smoke.PHASE_ORDER)
     assert set(chip_smoke.FUSED_PHASES) <= order
     assert set(chip_smoke.PH_PHASES) <= order
+
+
+def test_phase_14_runs_after_8_and_counts_on_the_fused_path(capsys):
+    order = chip_smoke.PHASE_ORDER
+    assert order.index(14) == order.index(8) + 1
+    assert 14 in chip_smoke.FUSED_PHASES and 14 in chip_smoke.WATER_PHASES
+    assert chip_smoke.select_phases(["--phases", "3,4,14"]) == {
+        1, 2, 3, 4, 14}
+    # a run without phase 14 prints a null fused count, not a partial one
+    part = chip_smoke.select_phases(["--phases", "3,4,8,9,10"])
+    assert chip_smoke.main_path_launches(
+        "fused", 40, chip_smoke.FUSED_PHASES, part) is None
+    out = capsys.readouterr().out
+    assert "null" in out and "[4, 8, 9, 10]" in out

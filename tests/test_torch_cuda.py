@@ -32,7 +32,9 @@ the serial oracle and under a replayed graph; and the torch-op routes
 of slice 11: the pair-RMSD matrix (DistanceMatrix, encore) against its
 CPU run, the Fréchet wavefront against the host recurrence on the
 card's own cross matrix, WOR's device lag sums and DielectricConstant
-on the card and its mesh against serial.
+on the card and its mesh against serial; and the fused kernel fed from
+a TRR and an AMBER NetCDF (slice 12's readers), equal to a MemoryReader
+of the same frames.
 """
 
 import numpy as np
@@ -386,6 +388,39 @@ def test_cuda_fused_rmsf_from_an_int16_store_matches_cpu(tmp_path):
                                           **run)
     np.testing.assert_allclose(card.results.rmsf, cpu.results.rmsf,
                                atol=5e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ext", ["trr", "nc"])
+def test_cuda_fused_rmsf_from_trr_and_netcdf_equals_memory(ext, tmp_path):
+    """AlignedRMSF's fused engine from a small TRR and a small NetCDF
+    (written by ``TrajectoryWriter`` in two pieces): the kernel runs in
+    both passes, and the RMSF EQUALS the run over the same decoded
+    frames from a MemoryReader (the same float32 frames stage the same
+    int16 blocks)."""
+    from mdanalysis_mpi_tpu_torch import Universe
+    from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
+    from mdanalysis_mpi_tpu_torch.io.memory import MemoryReader
+    from mdanalysis_mpi_tpu_torch.io.writer import TrajectoryWriter
+    from mdanalysis_mpi_tpu_torch.testing import make_protein_universe
+
+    dev = _card()
+    u = make_protein_universe(n_residues=60, n_frames=70, noise=0.3, seed=9)
+    frames, _ = u.trajectory.read_block(0, 70)
+    path = str(tmp_path / f"t.{ext}")
+    with TrajectoryWriter(path) as w:
+        w.write(frames[:40], dimensions=BOX)
+        w.write(frames[40:], dimensions=BOX)
+    run = dict(backend="torch", device=dev, batch_size=32,
+               transfer_dtype="int16")
+    file_u = Universe(u.topology, path)
+    decoded, boxes = file_u.trajectory.read_block(0, 70)
+    n0 = fp.planar_sums.launches
+    got = AlignedRMSF(file_u, select="name CA", engine="fused").run(**run)
+    assert fp.planar_sums.launches == n0 + 6      # 3 blocks, 2 passes
+    mem_u = Universe(u.topology, MemoryReader(decoded, dimensions=boxes))
+    want = AlignedRMSF(mem_u, select="name CA", engine="fused").run(**run)
+    np.testing.assert_array_equal(got.results.rmsf, want.results.rmsf)
 
 
 @pytest.mark.cuda

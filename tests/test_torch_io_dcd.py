@@ -3,8 +3,9 @@ trajectory writer, against the JAX package.
 
 Files the port writes are byte-identical to the JAX package's, and each
 package reads the other's files to the same arrays.  The rest mirrors
-tests/test_chain.py and tests/test_writer.py for the formats the port
-carries (XTC and DCD; TRR, NetCDF and XYZ are ROADMAP A8), and ends
+tests/test_chain.py and tests/test_writer.py for XTC and DCD (TRR,
+NetCDF and XYZ have files of their own, tests/test_torch_trr.py,
+test_torch_netcdf.py and test_torch_xyz.py), and ends
 with BASELINE config 1's route at a small size: a PSF/DCD pair through
 ``AlignedRMSF`` in both packages.
 """
@@ -280,10 +281,21 @@ def test_writer_errors(tmp_path):
         w.write(_frames(1, atoms=9))
     with pytest.raises(ValueError, match="format"):
         TrajectoryWriter(str(tmp_path / "out.gro"))
-    for ext in ("trr", "nc", "xyz"):
-        with pytest.raises(NotImplementedError, match="A8"):
-            TrajectoryWriter(str(tmp_path / f"out.{ext}"))
-        assert not os.path.exists(tmp_path / f"out.{ext}")
+    # the other streamed formats each round-trip a frame
+    frame = _frames(1, atoms=9)
+    for ext, atol in (("trr", 1e-5), ("nc", 0.0), ("xyz", 1e-5)):
+        out = str(tmp_path / f"out.{ext}")
+        with TrajectoryWriter(out) as w:
+            w.write(frame)
+        block, _ = _read_all(out)
+        np.testing.assert_allclose(block, frame, atol=atol)
+    # xyz stores no cell and no times, as the JAX writer refuses them
+    with TrajectoryWriter(str(tmp_path / "refuse.xyz")) as w:
+        with pytest.raises(ValueError, match="unit cell"):
+            w.write(frame, dimensions=BOX)
+        with pytest.raises(ValueError, match="times"):
+            w.write(frame, times=np.array([1.0]))
+        assert w.frames_written == 0
 
 
 def test_chunk_temp_path_unique_per_writer(tmp_path):

@@ -62,16 +62,17 @@ class TestVACF:
         np.testing.assert_allclose(b.results.timeseries,
                                    s.results.timeseries, atol=1e-9)
 
-    def test_trr_velocities_end_to_end(self):
-        """The JAX test writes the velocities to a TRR and reads them
-        back; the port's TRR writer and reader come with the readers and
-        writers of ROADMAP A8 item 4, so this twin feeds the same
-        velocities through ``MemoryReader(velocities=...)`` instead, the
-        other source the analysis accepts."""
+    def test_trr_velocities_end_to_end(self, tmp_path):
+        """The JAX test's route: the velocities written to a TRR by
+        ``write_trr`` and read back through ``TRRReader``."""
+        from mdanalysis_mpi_tpu_torch.io.trr import TRRReader, write_trr
+
         u0 = _vel_universe(n_frames=12, n_mol=4)
         pos, _ = u0.trajectory.read_block(0, 12)
         vels = np.stack([u0.trajectory[i].velocities for i in range(12)])
-        u = Universe(u0.topology, MemoryReader(pos, velocities=vels))
+        path = str(tmp_path / "v.trr")
+        write_trr(path, pos, velocities=vels)
+        u = Universe(u0.topology, TRRReader(path))
         r = VelocityAutocorr(u.select_atoms("name OW")).run(backend="serial")
         ref = VelocityAutocorr(u0.select_atoms("name OW")).run(
             backend="serial")
