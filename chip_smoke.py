@@ -9,16 +9,17 @@ Run from the root of a checkout, with no arguments::
 That runs every phase.  ``--phases 3,4,13`` runs a comma list of them
 instead (phases 1 and 2 always run; every check within a selected phase
 stays).  A phase that needs what an earlier phase builds either builds
-it itself (the water box of phases 3, 5, 10, 12, 13 and 14; phase 13's
-PSF/DCD) or refuses the selection with a message and exit code 2:
-phases 6, 8, 9, 10, 12 and 14 run on phase 4's system and result, so
-they need 4; phase 5 compares with phase 3's main case, so it needs 3.
+it itself (the water box of phases 3, 5, 10, 12, 13, 14 and 15; the
+config-1 PSF/DCD of phases 13 and 15) or refuses the selection with a
+message and exit code 2: phases 6, 8, 9, 10, 12, 14 and 15 run on phase
+4's system and result, so they need 4; phase 5 compares with phase 3's
+main case, so it needs 3.
 The kernel table line needs phase 3's timings: without phase 3 the
 script says so in its place.  A kernel's ``launches`` there is the
 count of its whole main path, so it is null unless every phase that
-launches it on that path ran (the fused kernel: 4, 8, 14, 9, 10; the
-pair histogram: 5, 10); the counts of the phases that did run are
-printed on a line of their own.
+launches it on that path ran (the fused kernel: 4, 8, 14, 15, 9, 10;
+the pair histogram: 5, 15, 10); the counts of the phases that did run
+are printed on a line of their own.
 
 Phases (each prints its own lines; any failure exits non-zero and
 prints no ok line):
@@ -320,6 +321,43 @@ prints no ok line):
    prints its first-run and repeat walls and its error beside its gate,
    with the card's name and power limit.
 
+15. The serving tier on the card (after phase 5, on phase 4's system
+   and phase 5's water box).  (a) One ``service.Scheduler``
+   (``n_workers=1``, ``autostart=False``, a shared 16 GiB
+   ``DeviceBlockCache``, breakers on, a journal in a temporary
+   directory, ``MDTPU_PROF=1``) serves four tenants: A, the fused int16
+   ``AlignedRMSF`` of phase 4 (B = 512) on ``backend='torch'``,
+   priority 10; B, the same on ``backend='mesh'`` over the one card
+   (its own reader of the same frames), priority 5; C, ``RMSD`` and
+   ``RadiusOfGyration`` of the heavy atoms (float32), which must
+   coalesce into one merged unit; D, ``InterRDF(ow, ow, engine='auto')``
+   of the water box, batch 16.  ``Scheduler.warmup`` (programs run for
+   the torch and the mesh job), ``prefetch_pending`` (every unit staged,
+   none skipped, no "warmup skipped" or failed prefetch logged), then
+   the served run with both kernels' counts set to 0 just before and
+   read just after: 16 fused and 4 pair-histogram launches, every one
+   in a ``mdtpu-serve-*`` worker thread, no cache miss (pass 1 of A
+   hits the prefetched blocks), A done before B, nothing shed to serial
+   or rerouted, the journal replaying every job as done, the profiler
+   holding stacks and no seed alert rule firing over the scheduler's
+   snapshot.  Every handle's result is read (a failed job fails the
+   phase) and held to a solo ``run()`` on the card, which must carry
+   ``results.observability``: RMSF within 1e-5 Å (and whether it is
+   bit-equal printed), RMSD, Rg and g(r) within 1e-5 relative, counts
+   equal.  (b) Two jobs under an endless injected ``kernel`` fault trip
+   the torch breaker (threshold 2); the next torch job fails with
+   ``BackendUnavailableError`` naming it and never runs on serial;
+   after the cooldown (an injected breaker clock) the half-open probe
+   (a torch op on the card and a synchronize) closes the breaker and a
+   full AlignedRMSF job runs with 8 fused launches, which join the
+   phase's count.  (c) ``python -m mdanalysis_mpi_tpu_torch batch`` on a
+   job file of three jobs over config 1's PSF/DCD (AlignedRMSF fused
+   int16, RMSD, RadiusOfGyration; Cα, batch 32): every job done, its
+   ``.npz`` within 1e-5 Å of the same run in process.  Prints the
+   warmup and prefetch seconds, each job's queue wait and latency, the
+   served wall beside the solo runs' walls, and every error beside its
+   limit.
+
 Phase 3 also holds the pair-histogram kernel (``ops/fused_distances.
 pair_histogram``, ``csrc/pair_histogram.cu``) against
 ``pair_histogram_plain`` on the card: the main shape (the first block of
@@ -484,7 +522,7 @@ VACF_RTOL = 1e-3                     # test_vacf.py's elementwise rtol
 VACF_FLOOR = 1e-2                    # lags held to it: |C| >= this x C(0)
 CLI_TOL = 1e-5
 # every phase, in the order they run
-PHASE_ORDER = (1, 2, 3, 4, 8, 14, 5, 6, 9, 10, 12, 13, 7, 11)
+PHASE_ORDER = (1, 2, 3, 4, 8, 14, 5, 15, 6, 9, 10, 12, 13, 7, 11)
 
 
 class SmokeFailure(Exception):
@@ -3748,13 +3786,438 @@ def phase_remaining(card, uw, ow):
           f"on {card}")
 
 
+# ---------------------------------------------------------------- phase 15
+
+#: the shared device cache of phase 15's scheduler: every tenant's
+#: estimate (full atom count) admitted with a reservation
+SERVE_CACHE_BYTES = 16 << 30
+#: the breaker leg's faulting jobs run one block each
+SERVE_FAULT_STOP = 512
+SERVE_TOL = 1e-5
+
+
+class _WarningTap:
+    """Keeps the scheduler logger's warnings (a skipped warmup or a
+    failed prefetch must not pass unnoticed)."""
+
+    def __init__(self):
+        import logging
+
+        class _Handler(logging.Handler):
+            def emit(inner, record):
+                self.lines.append(record.getMessage())
+
+        self.lines = []
+        self._handler = _Handler(logging.WARNING)
+        self._logger = logging.getLogger("mdtpu.service")
+
+    def __enter__(self):
+        self._logger.addHandler(self._handler)
+        return self
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self._handler)
+        return False
+
+
+class _LaunchThreads:
+    """Notes the thread of every hand-kernel launch (and every launch
+    recorded into a CUDA graph capture) while active."""
+
+    def __enter__(self):
+        import threading
+
+        from mdanalysis_mpi_tpu_torch import _build
+
+        self.names = []
+        self._orig = orig = _build.count_launch
+
+        def counting(wrapper):
+            self.names.append(threading.current_thread().name)
+            orig(wrapper)
+
+        _build.count_launch = counting
+        return self
+
+    def __exit__(self, *exc):
+        from mdanalysis_mpi_tpu_torch import _build
+
+        _build.count_launch = self._orig
+        return False
+
+
+def rel_err(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def serve_tenants(card, u, ow, tmp):
+    """Phase 15 (a): four tenants on one ``Scheduler`` → fused and
+    pair-histogram launches of the served run, and the served A's
+    RMSF."""
+    import torch
+
+    from mdanalysis_mpi_tpu_torch import Universe, obs
+    from mdanalysis_mpi_tpu_torch.analysis import (AlignedRMSF, InterRDF,
+                                                   RMSD, RadiusOfGyration)
+    from mdanalysis_mpi_tpu_torch.io.memory import MemoryReader
+    from mdanalysis_mpi_tpu_torch.obs import prof
+    from mdanalysis_mpi_tpu_torch.obs.alerts import AlertEngine, seed_rules
+    from mdanalysis_mpi_tpu_torch.ops import fused_distances as fd
+    from mdanalysis_mpi_tpu_torch.ops import fused_planar as fp
+    from mdanalysis_mpi_tpu_torch.parallel.executors import DeviceBlockCache
+    from mdanalysis_mpi_tpu_torch.service import AnalysisJob, Scheduler
+    from mdanalysis_mpi_tpu_torch.utils.timers import TIMERS
+
+    bs = E2E_BATCH
+    # tenant B reads the same frames through a reader of its own, so
+    # each reader's adaptive int16 scale hints start fresh for its
+    # tenant as they do for that tenant's solo run
+    u_b = Universe(u.topology, MemoryReader(u.trajectory._coords))
+    for x in (u, u_b):
+        x.trajectory.__dict__.pop("_quant_max_hints", None)
+    int16 = {"transfer_dtype": "int16"}
+    jobs = {
+        "A": AnalysisJob(AlignedRMSF(u, select="heavy", engine="fused"),
+                         backend="torch", batch_size=bs,
+                         executor_kwargs=dict(int16), priority=10,
+                         tenant="A", fingerprint="A"),
+        "B": AnalysisJob(AlignedRMSF(u_b, select="heavy", engine="fused"),
+                         backend="mesh", batch_size=bs,
+                         executor_kwargs=dict(int16), priority=5,
+                         tenant="B", fingerprint="B"),
+        "C-rmsd": AnalysisJob(RMSD(u, select="heavy"), backend="torch",
+                              batch_size=bs, priority=1, tenant="C",
+                              fingerprint="C-rmsd"),
+        "C-rgyr": AnalysisJob(RadiusOfGyration(u.select_atoms("heavy")),
+                              backend="torch", batch_size=bs, priority=1,
+                              tenant="C", fingerprint="C-rgyr"),
+        "D": AnalysisJob(InterRDF(ow, ow, engine="auto"), backend="torch",
+                         batch_size=RDF_BATCH, priority=1, tenant="D",
+                         fingerprint="D"),
+    }
+    journal = os.path.join(tmp, "serve.jsonl")
+    cache = DeviceBlockCache(max_bytes=SERVE_CACHE_BYTES)
+    sched = Scheduler(n_workers=1, autostart=False, cache=cache,
+                      journal=journal)
+    os.environ["MDTPU_PROF"] = "1"
+    try:
+        with _WarningTap() as tap:
+            t0 = time.perf_counter()
+            warm_a = sched.warmup([jobs["A"]])["executables"]
+            warm_b = sched.warmup([jobs["B"]])["executables"]
+            warm_r = sched.warmup([jobs[k] for k in ("C-rmsd", "C-rgyr",
+                                                     "D")])["executables"]
+            torch.cuda.synchronize()
+            t_warm = time.perf_counter() - t0
+            handles = {k: sched.submit(j) for k, j in jobs.items()}
+            t0 = time.perf_counter()
+            staged = sched.prefetch_pending()
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t0
+            hits0, misses0 = cache.hits, cache.misses
+            # the main path: the counts set to 0 just before the served
+            # run and read just after it
+            fp.planar_sums.launches = 0
+            fd.pair_histogram.launches = 0
+            with _LaunchThreads() as threads:
+                t0 = time.perf_counter()
+                sched.start()
+                drained = sched.drain(timeout=900)
+                torch.cuda.synchronize()
+                t_serve = time.perf_counter() - t0
+            fused, ph = fp.planar_sums.launches, fd.pair_histogram.launches
+            stacks = len(prof.report(top=1000)["stacks"])
+            served = {}
+            for k, h in handles.items():
+                try:
+                    served[k] = h.result(timeout=0)
+                except Exception as exc:
+                    raise SmokeFailure(
+                        f"served job {k} failed: {type(exc).__name__}: "
+                        f"{exc}") from exc
+            snap = sched.telemetry.snapshot()
+            firing = [a["rule"] for a in sched.alerts.firing()]
+            unified = obs.unified_snapshot(timers=TIMERS, cache=cache,
+                                           telemetry=sched.telemetry)
+    finally:
+        os.environ.pop("MDTPU_PROF", None)
+        prof.disable()
+        sched.shutdown()
+    check(drained, "phase 15's scheduler did not drain in 900 s")
+    print(f"serve: warmup {t_warm:.2f} s (programs run: A {warm_a}, "
+          f"B {warm_b}, C and D {warm_r}); prefetch {t_pre:.2f} s "
+          f"({staged} blocks staged ahead of the claims); served run "
+          f"{t_serve:.2f} s for {len(jobs)} jobs; fused launches {fused}, "
+          f"pair-histogram launches {ph} on {card}")
+    for k, h in handles.items():
+        print(f"serve job {k}: {type(h.job.analysis).__name__} on "
+              f"{h.job.backend}, queue wait {h.queue_wait_s:.3f} s, "
+              f"latency {h.latency_s:.3f} s, coalesced {h.coalesced}")
+    check(warm_a > 0 and warm_b > 0,
+          f"warmup ran no program for the torch job ({warm_a}) or the "
+          f"mesh job ({warm_b})")
+    bad = [x for x in tap.lines
+           if "warmup skipped" in x or "prefetch failed" in x]
+    check(not bad, f"the scheduler logged {bad}")
+    check(snap["prefetch_skipped"] == 0 and staged > 0
+          and all(h.prefetched for h in handles.values()),
+          f"prefetch staged {staged} blocks, skipped "
+          f"{snap['prefetch_skipped']} units")
+    check(cache.misses == misses0 and cache.hits > hits0,
+          f"served passes missed the prefetched blocks: misses "
+          f"{misses0} -> {cache.misses}, hits {hits0} -> {cache.hits}")
+    check(fused == 16 and ph == 4,
+          f"launches inside the served run: fused {fused} (expected 16), "
+          f"pair histogram {ph} (expected 4)")
+    check(threads.names and all(n.startswith("mdtpu-serve-")
+                                for n in threads.names),
+          f"hand kernels launched outside the scheduler's workers: "
+          f"{sorted(set(threads.names))}")
+    check(snap["coalesce_batches"] == 1 and snap["coalesced_jobs"] == 2,
+          f"coalescing: {snap['coalesce_batches']} merged units of "
+          f"{snap['coalesced_jobs']} jobs (expected 1 of 2)")
+    check(handles["C-rmsd"].coalesced and handles["C-rgyr"].coalesced,
+          "tenant C's RMSD and RadiusOfGyration did not share a pass")
+    check(handles["A"].finished_t < handles["B"].finished_t,
+          "tenant A (priority 10) finished after tenant B (priority 5)")
+    check(snap["admission_shed_serial"] == 0 and snap["breaker_reroutes"]
+          == 0, f"jobs moved off the card: shed to serial "
+          f"{snap['admission_shed_serial']}, rerouted "
+          f"{snap['breaker_reroutes']}")
+    rec = Scheduler.recover(journal)
+    check(rec["done"] == set(jobs) and not rec["pending"],
+          f"journal replay: done {sorted(rec['done'])}, pending "
+          f"{rec['pending']}")
+    check(stacks > 0, "MDTPU_PROF=1: the profiler holds no stacks")
+    eng = AlertEngine(rules=seed_rules())
+    fired = [t["rule"] for i in range(3)
+             for t in eng.evaluate(unified, now=float(i))
+             if t["state"] == "firing"]
+    check(not firing and not fired,
+          f"seed alert rules fired over the scheduler's snapshot: "
+          f"{firing or fired}")
+    print(f"serve checks: coalesced {snap['coalesced_jobs']} jobs in "
+          f"{snap['coalesce_batches']} unit; cache hits {hits0} -> "
+          f"{cache.hits}, misses {cache.misses} unchanged; journal "
+          f"replays {len(rec['done'])} done; profiler stacks {stacks}; "
+          f"no seed alert fired; shed to serial 0")
+
+    # each result against a solo run() of the same analysis on the card
+    run_kw = dict(backend="torch", batch_size=bs)
+    solos = {}
+
+    def solo(key, make):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = make()
+        torch.cuda.synchronize()
+        solos[key] = time.perf_counter() - t0
+        rep = r.results.get("observability")
+        check(rep is not None and rep["analysis"] == type(r).__name__,
+              f"solo {key} run carries no results.observability")
+        return r
+
+    u.trajectory.__dict__.pop("_quant_max_hints", None)
+    sa = solo("A", lambda: AlignedRMSF(u, select="heavy", engine="fused")
+              .run(transfer_dtype="int16", **run_kw))
+    u_b.trajectory.__dict__.pop("_quant_max_hints", None)
+    sb = solo("B", lambda: AlignedRMSF(u_b, select="heavy",
+                                       engine="fused").run(
+        backend="mesh", batch_size=bs, transfer_dtype="int16"))
+    sd = solo("C-rmsd", lambda: RMSD(u, select="heavy").run(**run_kw))
+    sg = solo("C-rgyr", lambda: RadiusOfGyration(
+        u.select_atoms("heavy")).run(**run_kw))
+    sr = solo("D", lambda: InterRDF(ow, ow).run(
+        backend="torch", batch_size=RDF_BATCH))
+    for key, got, want in (("A", served["A"], sa), ("B", served["B"], sb)):
+        g, w = got.results.rmsf, want.results.rmsf
+        err = float(np.abs(g - w).max())
+        print(f"serve {key} vs its solo run: max |d rmsf| {err:.3g} A "
+              f"(limit {SERVE_TOL}), bit-equal {np.array_equal(g, w)}")
+        check(err <= SERVE_TOL, f"served {key} RMSF {err:.3g} A from its "
+              "solo run")
+    e_d = rel_err(served["C-rmsd"].results.rmsd, sd.results.rmsd)
+    e_g = rel_err(served["C-rgyr"].results.rgyr, sg.results.rgyr)
+    e_r = rel_err(served["D"].results.rdf, sr.results.rdf)
+    same_counts = np.array_equal(served["D"].results.count,
+                                 sr.results.count)
+    print(f"serve C (coalesced) vs solo: RMSD {e_d:.3g}, Rg {e_g:.3g} "
+          f"relative; D: g(r) {e_r:.3g} relative, counts equal "
+          f"{same_counts} (limits {SERVE_TOL})")
+    check(e_d <= SERVE_TOL and e_g <= SERVE_TOL,
+          f"served C: RMSD {e_d:.3g}, Rg {e_g:.3g} relative from solo")
+    check(e_r <= SERVE_TOL and same_counts,
+          f"served D: g(r) {e_r:.3g} relative, counts equal {same_counts}")
+    lat = sum(h.latency_s for h in handles.values())
+    print(f"serve wall {t_serve:.2f} s against the solo runs' "
+          f"{sum(solos.values()):.2f} s ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in solos.items())
+          + f"); summed job latencies {lat:.2f} s on {card}")
+    cache.drop()
+    return fused, ph, served["A"].results.rmsf
+
+
+def serve_breaker(card, u, rmsf_served):
+    """Phase 15 (b): injected kernel faults trip the torch breaker; the
+    next torch job is refused (not finished on serial); after the
+    cooldown the half-open probe closes the breaker and one more job
+    runs on the card → its fused launches."""
+    import torch
+
+    from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
+    from mdanalysis_mpi_tpu_torch.ops import fused_planar as fp
+    from mdanalysis_mpi_tpu_torch.reliability import breaker, faults
+    from mdanalysis_mpi_tpu_torch.service import (BackendUnavailableError,
+                                                  Scheduler)
+
+    bs = E2E_BATCH
+    now = [0.0]
+    board = breaker.BreakerBoard(threshold=2, cooldown_s=30.0,
+                                 clock=lambda: now[0])
+    sched = Scheduler(n_workers=1, breakers=board)
+    kw = dict(backend="torch", batch_size=bs,
+              executor_kwargs={"transfer_dtype": "int16"}, coalesce=False)
+    try:
+        t0 = time.perf_counter()
+        with faults.inject(faults.FaultSpec("kernel", "raise",
+                                            times=None)):
+            bad = [sched.submit(AlignedRMSF(u, select="heavy",
+                                            engine="fused"),
+                                stop=SERVE_FAULT_STOP,
+                                tenant=f"faulty-{i}", **kw)
+                   for i in range(2)]
+            check(sched.drain(timeout=300), "faulting jobs did not drain")
+        errs = [type(h.error).__name__ for h in bad]
+        check(all(h.error is not None for h in bad),
+              f"jobs under an endless kernel fault finished: {errs}")
+        check(board.get("torch").state == breaker.OPEN,
+              f"torch breaker {board.get('torch').state} after 2 faults")
+        refused = sched.submit(AlignedRMSF(u, select="heavy",
+                                           engine="fused"),
+                               tenant="refused", **kw)
+        check(sched.drain(timeout=300), "the refused job did not drain")
+        err = refused.error
+        check(isinstance(err, BackendUnavailableError)
+              and err.breakers == ("torch",),
+              f"with the torch breaker open the job ended "
+              f"{refused.state} with {type(err).__name__}: {err}")
+        check("rmsf" not in refused.job.analysis.results,
+              "the refused job has a result: it ran somewhere")
+        snap = sched.telemetry.snapshot()
+        check(snap["breaker_reroutes"] == 0
+              and snap["admission_shed_serial"] == 0,
+              f"jobs moved to serial: {snap['breaker_reroutes']} "
+              f"reroutes, {snap['admission_shed_serial']} sheds")
+        now[0] += 31.0
+        u.trajectory.__dict__.pop("_quant_max_hints", None)
+        torch.cuda.synchronize()
+        fp.planar_sums.launches = 0
+        back = sched.submit(AlignedRMSF(u, select="heavy",
+                                        engine="fused"),
+                            tenant="recovered", **kw)
+        check(sched.drain(timeout=300), "the recovered job did not drain")
+        torch.cuda.synchronize()
+        launches = fp.planar_sums.launches
+        wall = time.perf_counter() - t0
+    finally:
+        sched.shutdown()
+    check(back.error is None, f"after the cooldown the job failed: "
+          f"{type(back.error).__name__}: {back.error}")
+    br = board.get("torch")
+    check(br.state == breaker.CLOSED and br.probes == 1,
+          f"torch breaker {br.state} after {br.probes} probes")
+    check(launches == 8, f"the recovered job launched the fused kernel "
+          f"{launches} times (expected 8)")
+    err = float(np.abs(back.result().results.rmsf - rmsf_served).max())
+    print(f"serve breaker: 2 kernel faults ({errs}) opened the torch "
+          f"breaker; the next job was refused ({type(refused.error).__name__}"
+          f", never run on serial); after the cooldown the half-open probe "
+          f"closed it and the job ran with {launches} fused launches, "
+          f"RMSF {err:.3g} A from the served A; leg {wall:.1f} s on {card}")
+    check(err <= SERVE_TOL, f"recovered job's RMSF {err:.3g} A from A's")
+    return launches
+
+
+def serve_batch_cli(card, tmp):
+    """Phase 15 (c): ``python -m mdanalysis_mpi_tpu_torch batch`` on
+    config 1's PSF/DCD against the same three runs in process."""
+    from mdanalysis_mpi_tpu_torch import Universe
+    from mdanalysis_mpi_tpu_torch.utils.config import (AnalysisConfig,
+                                                       build_analysis)
+
+    psf, dcd, _ = write_config1(tmp)
+    specs = [{"analysis": "aligned-rmsf", "engine": "fused",
+              "transfer_dtype": "int16", "tenant": "a"},
+             {"analysis": "rmsd", "tenant": "d"},
+             {"analysis": "rgyr", "tenant": "g"}]
+    keys = ("rmsf", "rmsd", "rgyr")
+    for s in specs:
+        s["output"] = os.path.join(tmp, f"batch-{s['tenant']}.npz")
+    spec = {"topology": psf, "trajectory": dcd,
+            "defaults": {"select": "name CA", "batch_size": 32},
+            "jobs": specs}
+    path = os.path.join(tmp, "jobs.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mdanalysis_mpi_tpu_torch",
+                           "batch", path], capture_output=True, text=True,
+                          env=env, cwd=tmp, timeout=600)
+    t_cli = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"batch exited {proc.returncode}: {proc.stderr[-2000:]}")
+    doc = json.loads(proc.stdout.strip().splitlines()[-1])
+    states = [r["state"] for r in doc["jobs"]]
+    check(states == ["done"] * 3, f"batch job states {states}")
+    check(doc["serving"]["admission_shed_serial"] == 0,
+          "batch shed a job to serial")
+    u = Universe(psf, dcd)
+    errs = []
+    for s, key in zip(specs, keys):
+        cfg = AnalysisConfig(analysis=s["analysis"], topology=psf,
+                             trajectory=dcd, select="name CA",
+                             engine=s.get("engine", "auto"))
+        run_kw = {"batch_size": 32}
+        if "transfer_dtype" in s:
+            run_kw["transfer_dtype"] = s["transfer_dtype"]
+        want = np.asarray(build_analysis(cfg, universe=u).run(
+            **run_kw).results.materialize()[key])
+        got = np.load(s["output"])[key]
+        errs.append(float(np.abs(got - want).max()))
+    print(f"serve batch: python -m mdanalysis_mpi_tpu_torch batch "
+          f"(aligned-rmsf fused int16, rmsd, rgyr on config 1's PSF/DCD): "
+          f"process {t_cli:.2f} s, its batch wall {doc['wall_s']} s; npz "
+          f"vs in-process max |d| {', '.join(f'{e:.3g}' for e in errs)} A "
+          f"(limit {SERVE_TOL}) on {card}")
+    check(max(errs) <= SERVE_TOL, f"batch results {errs} A from the "
+          "in-process runs")
+
+
+def phase_serve(card, u, uw, ow):
+    """Phase 15: the serving tier on the card → (fused launches,
+    pair-histogram launches) of its main path."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        fused, ph, rmsf_a = serve_tenants(card, u, ow, tmp)
+        fused += serve_breaker(card, u, rmsf_a)
+        serve_batch_cli(card, tmp)
+    print(f"serve phase: {time.perf_counter() - t_phase:.1f} s, fused "
+          f"launches {fused}, pair-histogram launches {ph} on {card}")
+    return fused, ph
+
+
 #: phases that run on the water box built once for them
-WATER_PHASES = {3, 5, 10, 12, 13, 14}
+WATER_PHASES = {3, 5, 10, 12, 13, 14, 15}
 #: phases that launch each kernel on its main path
-FUSED_PHASES = (4, 8, 14, 9, 10)
-PH_PHASES = (5, 10)
+FUSED_PHASES = (4, 8, 14, 15, 9, 10)
+PH_PHASES = (5, 15, 10)
 #: phases that run on what another phase builds → that phase
-NEEDS = {6: 4, 8: 4, 9: 4, 10: 4, 12: 4, 14: 4, 5: 3}
+NEEDS = {6: 4, 8: 4, 9: 4, 10: 4, 12: 4, 14: 4, 15: 4, 5: 3}
 NEEDS_WHY = {4: "phase 4's system and its RMSF",
              3: "phase 3's main pair-histogram case"}
 
@@ -3846,6 +4309,10 @@ def main(argv=None):
             launches += phase_files(card, u_e2e, rmsf_e2e, u)
         if 5 in phases:
             ph_launches += phase_rdf(card, u, ow, ph_rows["main"])
+        if 15 in phases:
+            serve_fused, serve_ph = phase_serve(card, u_e2e, u, ow)
+            launches += serve_fused
+            ph_launches += serve_ph
         if 6 in phases:
             phase_rmsd(card, u_e2e)
         if 9 in phases:

@@ -7,6 +7,12 @@ pipeline (and the rest of the analyses) as a proper command, on the
 card unless ``--device`` or ``--backend serial`` says otherwise.
 ``python -m mdanalysis_mpi_tpu_torch ingest TRAJ --out DIR`` writes a
 block store.
+
+Multi-tenant mode: ``python -m mdanalysis_mpi_tpu_torch batch
+jobs.json`` runs a JSON job file through the serving scheduler (request
+coalescing, shared-cache admission, per-job reliability; dispatched in
+``utils/config.main``), on the card unless the job file's defaults say
+``"device": "cpu"`` or ``"backend": "serial"``.
 """
 
 import sys

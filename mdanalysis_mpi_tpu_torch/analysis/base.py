@@ -350,21 +350,62 @@ class AnalysisBase:
                 self, policy, start=start, stop=stop, step=step,
                 frames=frames, backend=backend, batch_size=batch_size,
                 **executor_kwargs)
-        if not self._accepts_updating_groups:
-            self._refuse_updating_groups()
-        frames = list(self._frames(start, stop, step, frames))
-        self.n_frames = len(frames)
-        self._frame_indices = frames
-        executor = get_executor(backend, **executor_kwargs)
-        # the run's device (None on the serial backend), for analyses
-        # whose engine choice depends on it
-        self._run_device = getattr(executor, "device", None)
-        self._prepare()
-        total = executor.execute(self, self._universe.trajectory, frames,
-                                 batch_size=batch_size)
-        # raw partials handle: a fetch-free synchronization point
-        self._last_total = total
-        self._conclude(total)
+        import time
+
+        from mdanalysis_mpi_tpu_torch import obs
+        from mdanalysis_mpi_tpu_torch.utils.timers import TIMERS
+
+        obs.maybe_enable_from_env()
+        cap = obs.start_run_capture()
+        t0 = time.perf_counter()
+        try:
+            if not self._accepts_updating_groups:
+                self._refuse_updating_groups()
+            frames = list(self._frames(start, stop, step, frames))
+            self.n_frames = len(frames)
+            self._frame_indices = frames
+            executor = get_executor(backend, **executor_kwargs)
+            backend_name = getattr(executor, "name",
+                                   type(executor).__name__)
+            # the run's device (None on the serial backend), for
+            # analyses whose engine choice depends on it
+            self._run_device = getattr(executor, "device", None)
+            with obs.span("run", analysis=type(self).__name__,
+                          backend=backend_name, n_frames=self.n_frames):
+                with TIMERS.phase("prepare"):
+                    self._prepare()
+                with TIMERS.phase("execute"):
+                    total = executor.execute(
+                        self, self._universe.trajectory, frames,
+                        batch_size=batch_size)
+                # raw partials handle: a fetch-free synchronization point
+                self._last_total = total
+                with TIMERS.phase("conclude"):
+                    self._conclude(total)
+        except BaseException:
+            # a raising run never reaches finish_run_capture: release
+            # its phase window or every failed job would leak one into
+            # the process-global registry (obs/report.py)
+            obs.abandon_run_capture(cap)
+            raise
+        obs.METRICS.inc("mdtpu_runs_total", backend=backend_name)
+        self.results.observability = obs.finish_run_capture(
+            cap, analysis=type(self).__name__, backend=backend_name,
+            n_frames=self.n_frames)
+        if obs.trace_path():
+            # file-backed tracing: keep the trace on disk current after
+            # every run (atomic rewrite), so a crash or kill still
+            # leaves a loadable timeline of everything completed
+            obs.export_trace()
+        if getattr(self, "_verbose", False):
+            from mdanalysis_mpi_tpu_torch.utils.log import log_event
+
+            wall = time.perf_counter() - t0
+            log_event("run", analysis=type(self).__name__,
+                      backend=backend_name, n_frames=self.n_frames,
+                      wall_s=round(wall, 4),
+                      fps=round(self.n_frames / wall, 2) if wall > 0
+                      else None)
         return self
 
     def run_streaming(self, window: int | None = None,

@@ -451,16 +451,46 @@ class AlignedRMSF(AnalysisBase):
         # each pass is its own reduction with its own checkpoint
         # fingerprint and degradation chain, so it rides the child
         # run() calls, never the executor constructor
+        from mdanalysis_mpi_tpu_torch import obs
+
         resilient = kwargs.pop("resilient", False)
         backend, kwargs = self._setup_backend(backend, kwargs)
-        avg = self._make_pass1().run(
-            start, stop, step, frames=frames, backend=backend,
-            batch_size=batch_size, resilient=resilient, **kwargs)
-        moments_pass = self._make_pass2(avg)
-        moments_pass.run(start, stop, step, frames=frames, backend=backend,
-                         batch_size=batch_size, resilient=resilient,
-                         **kwargs)
-        self._finalize(moments_pass)
+        backend_name = (backend if isinstance(backend, str)
+                        else getattr(backend, "name",
+                                     type(backend).__name__))
+        obs.maybe_enable_from_env()
+        cap = obs.start_run_capture()
+        try:
+            with obs.span("run", analysis=type(self).__name__,
+                          backend=backend_name):
+                with obs.span("pass", index=1,
+                              analysis="AverageStructure"):
+                    avg = self._make_pass1().run(
+                        start, stop, step, frames=frames,
+                        backend=backend, batch_size=batch_size,
+                        resilient=resilient, **kwargs)
+                moments_pass = self._make_pass2(avg)
+                with obs.span("pass", index=2,
+                              analysis="_MomentsToReference"):
+                    moments_pass.run(
+                        start, stop, step, frames=frames,
+                        backend=backend, batch_size=batch_size,
+                        resilient=resilient, **kwargs)
+            self._finalize(moments_pass)
+        except BaseException:
+            # same leak guard as AnalysisBase.run: a failed pass must
+            # release the outer capture's phase window
+            obs.abandon_run_capture(cap)
+            raise
+        # the multi-pass RunReport covers both passes (the child runs
+        # attach their own per-pass reports to internal analyses)
+        self.results.observability = obs.finish_run_capture(
+            cap, analysis=type(self).__name__, backend=backend_name,
+            n_frames=self.n_frames)
+        if obs.trace_path():
+            # the child runs' exports happened before the outer run and
+            # pass spans closed; re-export so the file carries them
+            obs.export_trace()
         if resilient:
             # the per-pass reports land on the internal pass analyses;
             # merge them onto the surface the user reads

@@ -32,9 +32,7 @@ Everything is lock-guarded; recording costs one lock + dict update —
 cheap enough to stay always-on (per block / per job, never per frame).
 
 The known-metric tables below are the JAX package's schema, kept whole
-so both packages' snapshots carry the same names.  The flight recorder,
-profiler and alert modules some of them cite are the JAX package's and
-not yet in this package (ROADMAP A10).
+so both packages' snapshots carry the same names.
 """
 
 from __future__ import annotations
@@ -321,8 +319,8 @@ FLEET_GAUGES = (
 #: Fleet-observability counters (docs/OBSERVABILITY.md "Fleet
 #: federation"): host-side metric ships and trace-event batches
 #: piggybacked on heartbeats (drops disclosed, labeled ``site=``),
-#: flight-recorder dumps (labeled ``trigger=`` — the JAX package's
-#: obs/flight.py), and status-endpoint requests (labeled ``route=`` —
+#: flight-recorder dumps (labeled ``trigger=`` — obs/flight.py), and
+#: status-endpoint requests (labeled ``route=`` —
 #: service/statusd.py).  Recorded live at each site; zero-injected so
 #: a process that never federated still carries the schema.
 FLEET_OBS_COUNTERS = (
@@ -359,7 +357,7 @@ QOS_GAUGES = (
     "mdtpu_slo_attainment",
 )
 
-#: Continuous-profiler counters (the JAX package's obs/prof.py —
+#: Continuous-profiler counters (obs/prof.py —
 #: docs/OBSERVABILITY.md "Alerting & profiling"): sampler ticks, recorded live
 #: by the sampling thread; zero-injected so a process that never profiled still
 #: carries the schema.
@@ -377,7 +375,7 @@ PROF_GAUGES = (
 #: Profiler histograms: per-dispatch kernel latency, labeled by
 #: program geometry (``geometry=`` — batch size × scan group length)
 #: and ``engine=`` (``generic`` dequant+align program vs ``fused``
-#: quantized-native planar program; its obs/prof.py note_dispatch).
+#: quantized-native planar program; obs/prof.py note_dispatch).
 #: Zero-injected with an EMPTY series set: a histogram has no
 #: meaningful zero point, but the name/type must hold in every
 #: snapshot for the pinned schema.
@@ -398,7 +396,7 @@ FUSED_COUNTERS = (
     "mdtpu_fused_fallbacks_total",
 )
 
-#: Alerting series (the JAX package's obs/alerts.py — docs/OBSERVABILITY.md
+#: Alerting series (obs/alerts.py — docs/OBSERVABILITY.md
 #: "Alerting & profiling"): per-rule firing level (1 while any series of the
 #: rule fires) and the firing/resolved transition counter (labeled
 #: ``rule=``/``to=``).  Recorded live at each transition; zero-injected so a

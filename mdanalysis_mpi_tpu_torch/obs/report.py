@@ -2,9 +2,10 @@
 ``results.observability`` (the port's copy of the JAX package's
 ``obs/report.py``).
 
-``AnalysisBase.run_streaming`` captures phase totals for the run and
-attaches them together with wall time, the dispatch count, the active
-``scan_k``, and where the trace (if any) is being written.  A plain JSON-friendly dict:
+``AnalysisBase.run`` (and the multi-pass ``AlignedRMSF.run``) and
+``run_streaming`` capture phase totals for the run and attach them
+together with wall time, the dispatch count, the active ``scan_k``,
+and where the trace (if any) is being written.  A plain JSON-friendly dict:
 ``.npz``/CLI serialization filters it out automatically (dicts are not
 arrays) and notebooks read it directly.
 
@@ -21,10 +22,6 @@ trace context falls back to the process-global ``TIMERS`` delta
 since nothing else is recording.  (This replaces the PR-5
 time-window-slice caveat; the 2-worker regression test in
 ``tests/test_obs.py`` pins the isolation.)
-
-The JAX package's report also carries the continuous profiler's
-summary when sampling is on; the port has no profiler yet (ROADMAP
-A10), so its reports never carry that key.
 
 Near-free by construction: capture is two small dict copies per run()
 call (plus one list append when a window opens), nothing per frame or
@@ -114,4 +111,11 @@ def finish_capture(cap: dict, analysis: str, backend: str,
         "tracing": _spans.enabled(),
         "trace_out": _spans.trace_path(),
     }
+    from mdanalysis_mpi_tpu_torch.obs import prof as _prof
+
+    if _prof.enabled():
+        # the continuous profiler's process-level summary rides the
+        # run report when sampling is on; absent otherwise — the report
+        # stays byte-identical for profiler-off runs
+        report["profiler"] = _prof.run_summary()
     return report

@@ -42,11 +42,13 @@ get exact per-job phase totals with tracing disabled.
 Buffer semantics: the event buffer is a RING of :data:`MAX_EVENTS`
 — when it is full the OLDEST events are evicted (counted, disclosed
 in the exported ``otherData.dropped_events``), so :func:`tail` always
-holds the most recent window.
+holds the most recent window: the flight recorder's black box
+(``obs/flight.py``) relies on "recent" staying current forever.
 
-The JAX package's fleet trace shipping, process-wide args, counter
-events and flight recorder have no caller in this package yet
-(ROADMAP A10) and are not carried here.
+Process-wide args (:func:`set_process_args`) merge into every recorded
+event at the lowest precedence, and :func:`counter_event` records the
+continuous profiler's watermark line (``obs/prof.py``).  The JAX
+package's fleet trace shipping is not carried here yet.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ MAX_EVENTS = 500_000
 
 class _TraceState:
     __slots__ = ("enabled", "path", "events", "dropped", "t0",
-                 "tid_names")
+                 "tid_names", "proc_args")
 
     def __init__(self):
         self.enabled = False
@@ -77,6 +79,9 @@ class _TraceState:
         self.dropped = 0
         self.t0 = time.perf_counter()
         self.tid_names: dict[int, str] = {}
+        #: process-wide args merged (lowest precedence) into every
+        #: recorded span/event
+        self.proc_args: dict | None = None
 
 
 _STATE = _TraceState()
@@ -172,11 +177,28 @@ def tail(limit: int = 50, trace_id: str | None = None) -> list[dict]:
 
 def _merged_args(args: dict) -> dict:
     ctx = getattr(_CTX, "args", None)
-    if not ctx:
+    proc = _STATE.proc_args
+    if not ctx and not proc:
         return args
-    merged = dict(ctx)
+    merged = dict(proc) if proc else {}
+    if ctx:
+        merged.update(ctx)
     merged.update(args)
     return merged
+
+
+def set_process_args(**args) -> None:
+    """Merge ``args`` into EVERY span/event this process records, for
+    the life of the process (lowest precedence — thread contexts and
+    per-span args override).  Pass nothing to clear."""
+    with _LOCK:
+        _STATE.proc_args = dict(args) if args else None
+
+
+def process_args() -> dict | None:
+    """The current :func:`set_process_args` value (the flight recorder
+    stamps it into its dump header)."""
+    return dict(_STATE.proc_args) if _STATE.proc_args else None
 
 
 def _append(ev: dict, tid: int, thread_name: str) -> None:
@@ -273,6 +295,21 @@ def span_event(name: str, **args) -> None:
     if not _STATE.enabled:
         return
     _instant(name, args, "mdtpu")
+
+
+def counter_event(name: str, **values) -> None:
+    """Record a Chrome counter event (``ph:"C"``) — Perfetto renders
+    the values as a stacked area row (the profiler's RSS/watermark
+    line, obs/prof.py).  No-op when disabled."""
+    if not _STATE.enabled:
+        return
+    st = _STATE
+    th = threading.current_thread()
+    tid = th.native_id or 0
+    ev = {"ph": "C", "cat": "mdtpu", "name": name,
+          "ts": round((time.perf_counter() - st.t0) * 1e6, 1),
+          "pid": _PID, "tid": tid, "args": values}
+    _append(ev, tid, th.name)
 
 
 def log_mark(name: str, **args) -> None:

@@ -412,14 +412,8 @@ def reconcile(snap: dict, journal, baseline: dict | None = None) -> dict:
     ``{"ok", "usage", "journal", "diff"}`` with ``(tenant, outcome)``
     count maps (rendered as ``"tenant/outcome"`` keys)."""
     if isinstance(journal, (str, os.PathLike)):
-        try:
-            from mdanalysis_mpi_tpu_torch.service.journal import (
-                replay_fleet)
-        except ImportError as exc:
-            raise NotImplementedError(
-                "reconciling against a journal path needs "
-                "service/journal, which the port does not have yet "
-                "(ROADMAP A10); pass a replayed journal dict") from exc
+        from mdanalysis_mpi_tpu_torch.service.journal import replay_fleet
+
         journal = replay_fleet(journal)
     want: dict[str, int] = {}
     for fp, n in journal.get("finishes", {}).items():

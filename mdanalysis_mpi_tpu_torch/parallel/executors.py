@@ -57,6 +57,7 @@ import torch
 
 from mdanalysis_mpi_tpu_torch.device import resolve_device
 from mdanalysis_mpi_tpu_torch.io.base import BlockCache, sel_fingerprint
+from mdanalysis_mpi_tpu_torch.obs import prof as _prof
 from mdanalysis_mpi_tpu_torch.obs import spans as _spans
 from mdanalysis_mpi_tpu_torch.parallel.partition import (iter_batches,
                                                          pad_batch)
@@ -907,6 +908,9 @@ def _run_batches(analysis, reader, frames, bs, call, sel_idx, device,
 
     def consume(staged):
         nonlocal total
+        # continuous-profiler dispatch latency (obs/prof.py): one
+        # perf_counter pair per dispatch, only while sampling is on
+        pt0 = _time.perf_counter() if _prof.enabled() else None
         with TIMERS.phase("dispatch", scan_k=1, engine=engine):
             def _dispatch():
                 if _faults.plans():
@@ -919,6 +923,9 @@ def _run_batches(analysis, reader, frames, bs, call, sel_idx, device,
             else:
                 total = out if total is None else fold(total, out)
         _note_fused_blocks(1)
+        if pt0 is not None:
+            _prof.note_dispatch((_time.perf_counter() - pt0) * 1e3,
+                                geometry=f"bs{bs}_scan1", engine=engine)
 
     if scan_active:
         groups = [list(range(lo, min(lo + scan_k, len(bounds))))
@@ -946,6 +953,7 @@ def _run_batches(analysis, reader, frames, bs, call, sel_idx, device,
             nonlocal total
             stacked = group_hits[gi]
             n_blocks = _group_len(stacked)
+            pt0 = _time.perf_counter() if _prof.enabled() else None
             with TIMERS.phase("dispatch", scan_k=scan_k, blocks=n_blocks,
                               engine=engine):
                 def _dispatch():
@@ -962,6 +970,11 @@ def _run_batches(analysis, reader, frames, bs, call, sel_idx, device,
                 else:
                     total = out
             _note_fused_blocks(n_blocks)
+            if pt0 is not None:
+                # program geometry = batch size × scan group length
+                _prof.note_dispatch(
+                    (_time.perf_counter() - pt0) * 1e3,
+                    geometry=f"bs{bs}_scan{n_blocks}", engine=engine)
 
         def _flush_hits_before(gi_limit):
             """Consume, in order, every hit group before ``gi_limit``
@@ -1591,11 +1604,9 @@ class MeshExecutor:
         frames = list(frames)
         gbs = bs * n * size
         scan_k, scan = 1, None
-        if comm is None and (fold is None) == (combine is None):
-            scan_k = _resolve_scan_k(
-                self.scan_k, self.block_cache, -(-len(frames) // gbs),
-                _block_nbytes(gbs, setup.sel_idx, reader.n_atoms,
-                              self.transfer_dtype))
+        if comm is None:
+            scan_k = self._group_scan_k(analysis, setup, reader,
+                                        len(frames), gbs)
             if scan_k > 1:
                 scan = self._scan(setup, fold, combine, params_dev, comm,
                                   not getattr(analysis,
@@ -1620,6 +1631,125 @@ class MeshExecutor:
             device_key=self._device_key(comm),
             reliability=self.reliability, prestage=self.prestage,
             scan_k=scan_k, scan=scan)
+
+    def _local_setup(self, analysis):
+        """The frame-sharded single-controller setup ``warmup`` and
+        ``stage`` prepare for, or None where they have nothing to do:
+        a run under several processes (each rank's staging is its own
+        slice of a global schedule), the ring path (atom-sharded
+        params) and serial-only analyses."""
+        from mdanalysis_mpi_tpu_torch.parallel.distributed import world
+
+        if world()[1] > 1 or analysis._batch_specs() is not None:
+            return None
+        try:
+            return _batch_setup(analysis, self.transfer_dtype)
+        except NotImplementedError:
+            return None
+
+    def _group_scan_k(self, analysis, setup, reader, n_frames: int,
+                      gbs: int) -> int:
+        """``execute``'s scan group size on a single controller."""
+        if ((analysis._device_fold_fn is None)
+                != (analysis._device_combine is None)):
+            return 1
+        return _resolve_scan_k(
+            self.scan_k, self.block_cache, -(-n_frames // gbs),
+            _block_nbytes(gbs, setup.sel_idx, reader.n_atoms,
+                          self.transfer_dtype))
+
+    def warmup(self, analysis, reader, frames, batch_size=None) -> int:
+        """:meth:`TorchExecutor.warmup` on every device of the mesh (the
+        JAX package's ``MeshExecutor.warmup``): build and load the
+        ``csrc/`` kernel library when a device is a CUDA device, then
+        run each device's batch function on its zero shard of the
+        exact staged shapes, the ``_device_combine`` merge and the fold
+        once, and each scan group length ``execute`` would dispatch on
+        every device.  Returns the number of programs run; 0 for a
+        serial-only analysis, the ring path and a run under several
+        processes."""
+        setup = self._local_setup(analysis)
+        if setup is None:
+            return 0
+        bs = batch_size or self.batch_size
+        devs = self.devices
+        nd = len(devs)
+        gbs = bs * nd
+        frames = list(frames)
+        n_blocks = -(-len(frames) // gbs)
+        if n_blocks == 0:
+            return 0
+        if any(d.type == "cuda" for d in devs):
+            from mdanalysis_mpi_tpu_torch import _build
+
+            _build.load()
+        n_stage = (reader.n_atoms if setup.sel_idx is None
+                   else len(setup.sel_idx))
+        anchors = nd if setup.quantize == "delta" else 1
+        shards = _split_staged(
+            _zero_staged(gbs, n_stage, setup.quantize, setup.layout,
+                         delta_anchors=anchors),
+            nd, setup.layout == "planar")
+        fn, fold = setup.fn, analysis._device_fold_fn
+        combine = analysis._device_combine
+        params_dev = [_tree_to(setup.params, d) for d in devs]
+        staged_dev = [_put_staged(sh, d) for sh, d in zip(shards, devs)]
+        n = 0
+        outs = []
+        for p, st in zip(params_dev, staged_dev):
+            outs.append(fn(p, *st))
+            _cc.note_warmup()
+            n += 1
+        if combine is not None:
+            merged = combine(outs, None)
+            _cc.note_warmup()
+            n += 1
+            if fold is not None and n_blocks > 1:
+                fold(merged, merged)
+                _cc.note_warmup()
+                n += 1
+        init_sizes, fused_sizes = _scan_group_sizes(
+            self._group_scan_k(analysis, setup, reader, len(frames), gbs),
+            n_blocks)
+        for k in sorted(init_sizes | fused_sizes):
+            # a mesh group folds each device's shard from no total
+            # (the running total folds after the combine)
+            for p, st in zip(params_dev, staged_dev):
+                _fold_group(fn, fold, p, _stack_staged([st] * k), None)
+                _cc.note_warmup()
+                n += 1
+        return n
+
+    def stage(self, analysis, reader, frames, batch_size=None) -> int:
+        """Stage this run's blocks into ``block_cache`` without
+        dispatching any kernel (the JAX package's ``MeshExecutor.
+        stage``): each device's shard lands on its device under the
+        keys and scan grouping ``execute`` reads, so a later run over
+        the same window is all hits.  Returns the blocks staged; 0
+        without a cache, for a serial-only analysis, the ring path and
+        a run under several processes."""
+        if self.block_cache is None:
+            return 0
+        setup = self._local_setup(analysis)
+        if setup is None:
+            return 0
+        bs = batch_size or self.batch_size
+        nd = len(self.devices)
+        gbs = bs * nd
+        frames = list(frames)
+        return _run_batches(
+            analysis, reader, frames, gbs, None, setup.sel_idx,
+            self.devices[0], cache=self.block_cache,
+            quantize=setup.quantize, layout=setup.layout,
+            engine=setup.engine,
+            put=self._put(lambda staged: _split_staged(
+                staged, nd, setup.layout == "planar")),
+            delta_anchors=nd if setup.quantize == "delta" else 1,
+            device_key=self._device_key(None),
+            reliability=self.reliability,
+            scan_k=self._group_scan_k(analysis, setup, reader,
+                                      len(frames), gbs),
+            stage_only=True)
 
     def _execute_ring(self, analysis, reader, frames, bs, comm):
         """Atom-sharded (ring) analyses: frames are replicated (each

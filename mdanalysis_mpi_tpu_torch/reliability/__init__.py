@@ -1,6 +1,7 @@
 """Fault injection, retry/deadline policy, and graceful degradation
-(the JAX package's ``reliability`` package; its serving supervision has
-no port yet, ROADMAP A10).  Three cooperating modules:
+(the JAX package's ``reliability`` package; the serving supervision
+that consults the breakers lives in ``service/``).  Three cooperating
+modules:
 
 - :mod:`~mdanalysis_mpi_tpu_torch.reliability.faults` — deterministic fault
   injection at named sites (``read`` / ``stage`` / ``put`` /

@@ -12,10 +12,12 @@ analysis runs on its own default backend, ``torch`` on ``cuda`` (the
 JAX package's CLI defaults to ``serial``), but for the serial-only
 ``waterbridge``; ``--device cpu`` runs the device route on the CPU and
 ``--backend serial`` the float64 oracle.  ``ingest`` is the block
-store's command; ``batch``, ``fleet``, ``fleet-host``, ``status``,
-``usage`` and ``perf`` (the serving and observability tier, ROADMAP
-A10) and ``lint`` (ROADMAP A11) are not ported yet and raise
-``NotImplementedError``.
+store's command; ``batch`` runs a JSON job file through the serving
+scheduler (``service/cli.py``), ``status`` and ``usage`` fetch a
+running scheduler's endpoint, and ``perf`` is the perf-regression
+sentinel (``obs/baseline.py``).  ``fleet`` and ``fleet-host`` (the
+fleet tier, ROADMAP A10) and ``lint`` (ROADMAP A11) are not ported yet
+and raise ``NotImplementedError``.
 
 Output (Q7 — the reference computes the RMSF then drops it,
 RMSF.py:146-147): results are written as ``.npz`` when ``--output`` is
@@ -59,7 +61,8 @@ class AnalysisConfig:
     transfer_dtype: str = "float32"
     nbins: int = 75                     # rdf
     r_max: float = 15.0                 # rdf range upper edge
-    engine: str = "auto"                # rdf histogram engine
+    engine: str = "auto"                # rdf histogram engine; "fused":
+    #                                     aligned-rmsf's fused kernel
     cutoff: float = 8.0                 # contacts
     align: bool = False                 # pca: superpose onto the mean
     n_components: int | None = None     # pca
@@ -92,7 +95,11 @@ def build_analysis(cfg: AnalysisConfig, universe=None):
     if cfg.analysis == "rmsf":
         return ana.RMSF(u.select_atoms(cfg.select))
     if cfg.analysis == "aligned-rmsf":
-        return ana.AlignedRMSF(u, select=cfg.select, ref_frame=cfg.ref_frame)
+        # engine "fused": the hand kernel's route on int16/int8/delta
+        # staging; any other engine value is the generic route
+        return ana.AlignedRMSF(
+            u, select=cfg.select, ref_frame=cfg.ref_frame,
+            engine="fused" if cfg.engine == "fused" else None)
     if cfg.analysis == "rmsd":
         return ana.RMSD(u, select=cfg.select, ref_frame=cfg.ref_frame)
     if cfg.analysis == "average-structure":
@@ -166,12 +173,8 @@ def run_config(cfg: AnalysisConfig, universe=None):
 
 #: subcommands of the JAX package's CLI whose modules the port lacks yet
 _NOT_PORTED = {
-    "batch": "the serving tier, ROADMAP A10",
-    "fleet": "the serving tier, ROADMAP A10",
-    "fleet-host": "the serving tier, ROADMAP A10",
-    "status": "the serving tier, ROADMAP A10",
-    "usage": "the serving tier, ROADMAP A10",
-    "perf": "the observability tier, ROADMAP A10",
+    "fleet": "the fleet tier, ROADMAP A10",
+    "fleet-host": "the fleet tier, ROADMAP A10",
     "lint": "the lint tooling, ROADMAP A11",
 }
 
@@ -209,8 +212,10 @@ def _parser() -> argparse.ArgumentParser:
                    choices=("float32", "int16", "int8", "delta"))
     p.add_argument("--nbins", type=int, default=75)
     p.add_argument("--engine", default="auto",
-                   choices=("auto", "xla", "pallas", "ring"),
-                   help="RDF histogram engine (ring needs --backend mesh)")
+                   choices=("auto", "xla", "pallas", "ring", "fused"),
+                   help="RDF histogram engine (ring needs --backend "
+                        "mesh); 'fused' runs aligned-rmsf's fused kernel "
+                        "(with --transfer-dtype int16/int8/delta)")
     p.add_argument("--r-max", type=float, default=15.0)
     p.add_argument("--cutoff", type=float, default=8.0)
     p.add_argument("--align", action="store_true",
@@ -251,6 +256,29 @@ def main(argv=None) -> int:
     from mdanalysis_mpi_tpu_torch.utils.timers import TIMERS
 
     args = sys.argv[1:] if argv is None else list(argv)
+    if args and args[0] == "batch":
+        # multi-tenant job-file mode (service/ subsystem): N analyses,
+        # one scheduler, request coalescing
+        from mdanalysis_mpi_tpu_torch.service.cli import batch_main
+
+        return batch_main(args[1:])
+    if args and args[0] == "status":
+        # one-shot fetch of /status from a running scheduler endpoint:
+        # stdlib sockets only
+        from mdanalysis_mpi_tpu_torch.service.statusd import status_main
+
+        return status_main(args[1:])
+    if args and args[0] == "usage":
+        # one-shot fetch of /usage (per-tenant usage meters)
+        from mdanalysis_mpi_tpu_torch.service.statusd import usage_main
+
+        return usage_main(args[1:])
+    if args and args[0] == "perf":
+        # perf-regression sentinel over bench records: a pure JSON
+        # compare
+        from mdanalysis_mpi_tpu_torch.obs.baseline import perf_main
+
+        return perf_main(args[1:])
     if args and args[0] == "ingest":
         # block-store ingest (io/store subsystem): one decode pass
         # re-chunks a trajectory into the random-access quantized

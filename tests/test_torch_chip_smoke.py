@@ -23,7 +23,8 @@ def test_a_selection_always_adds_device_and_build():
 
 @pytest.mark.parametrize("arg, missing", [("6", 4), ("8,13", 4),
                                           ("5", 3), ("3,10", 4),
-                                          ("14", 4), ("3,8,14", 4)])
+                                          ("14", 4), ("3,8,14", 4),
+                                          ("15", 4), ("3,5,15", 4)])
 def test_a_selection_without_a_needed_phase_is_refused(arg, missing):
     with pytest.raises(ValueError, match=f"select phase {missing} too"):
         chip_smoke.select_phases(["--phases", arg])
@@ -67,3 +68,25 @@ def test_phase_14_runs_after_8_and_counts_on_the_fused_path(capsys):
         "fused", 40, chip_smoke.FUSED_PHASES, part) is None
     out = capsys.readouterr().out
     assert "null" in out and "[4, 8, 9, 10]" in out
+
+
+def test_phase_15_runs_after_5_and_counts_on_both_paths(capsys):
+    """The serving phase runs right after phase 5 (on its water box and
+    phase 4's system) and before phase 4's system is dropped; both
+    kernels' main-path counts include it."""
+    order = chip_smoke.PHASE_ORDER
+    assert order.index(15) == order.index(5) + 1
+    assert order.index(15) < order.index(7) and order.index(15) < \
+        order.index(11)
+    assert chip_smoke.NEEDS[15] == 4 and 15 in chip_smoke.WATER_PHASES
+    assert 15 in chip_smoke.FUSED_PHASES and 15 in chip_smoke.PH_PHASES
+    assert chip_smoke.select_phases(["--phases", "3,4,5,15"]) == {
+        1, 2, 3, 4, 5, 15}
+    # a run without phase 15 prints null counts for both kernels
+    part = chip_smoke.select_phases(["--phases", "3,4,5,8,9,10,14"])
+    for name, phases in (("fused", chip_smoke.FUSED_PHASES),
+                         ("pair_histogram", chip_smoke.PH_PHASES)):
+        assert chip_smoke.main_path_launches(name, 40, phases,
+                                             part) is None
+    out = capsys.readouterr().out
+    assert "[4, 8, 14, 9, 10]" in out and "[5, 10]" in out

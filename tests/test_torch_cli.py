@@ -261,12 +261,22 @@ class TestMainInProcess:
             main(["rgyr", psf, dcd, "--backend", "jax"])
 
     @pytest.mark.parametrize("sub,label", [
-        ("batch", "A10"), ("fleet", "A10"), ("fleet-host", "A10"),
-        ("status", "A10"), ("usage", "A10"), ("perf", "A10"),
-        ("lint", "A11")])
+        ("fleet", "A10"), ("fleet-host", "A10"), ("lint", "A11")])
     def test_subcommands_not_ported_yet(self, sub, label):
         with pytest.raises(NotImplementedError, match=label):
             main([sub, "anything"])
+
+    @pytest.mark.parametrize("sub", ["batch", "status", "usage", "perf"])
+    def test_serving_subcommands_dispatch(self, sub, capsys):
+        """The serving and observability subcommands reach the port's
+        own entry points (their parsers answer ``--help``)."""
+        from mdanalysis_mpi_tpu_torch.utils.config import _NOT_PORTED
+
+        assert sorted(_NOT_PORTED) == ["fleet", "fleet-host", "lint"]
+        with pytest.raises(SystemExit) as exc:
+            main([sub, "--help"])
+        assert exc.value.code == 0
+        assert f"mdanalysis_mpi_tpu_torch {sub}" in capsys.readouterr().out
 
     def test_ingest_subcommand(self, capsys, tmp_path):
         from mdanalysis_mpi_tpu_torch import Universe

@@ -34,7 +34,9 @@ CPU run, the Fréchet wavefront against the host recurrence on the
 card's own cross matrix, WOR's device lag sums and DielectricConstant
 on the card and its mesh against serial; and the fused kernel fed from
 a TRR and an AMBER NetCDF (slice 12's readers), equal to a MemoryReader
-of the same frames.
+of the same frames; and the serving tier on the card: both kernels
+launching inside a scheduler's worker, an open breaker refusing a job
+rather than finishing it on serial, and the mesh's warmup and stage.
 """
 
 import numpy as np
@@ -1138,3 +1140,166 @@ def test_cuda_water_and_dielectric_match_serial():
             **run).results.eps_mean
         np.testing.assert_allclose(got, want, rtol=1e-3)
 
+
+
+def _serve_universe():
+    from mdanalysis_mpi_tpu_torch.testing import make_protein_universe
+
+    return make_protein_universe(n_residues=60, n_frames=64, noise=0.3,
+                                 seed=13)
+
+
+@pytest.mark.cuda
+def test_cuda_scheduler_launches_both_kernels_inside_its_worker():
+    """A scheduler on the card serves a fused int16 AlignedRMSF (torch
+    and mesh) and a kernel-route InterRDF: every hand-kernel launch of
+    the served run happens in a ``mdtpu-serve-*`` worker (4 blocks × 2
+    passes × 2 jobs fused, 4 pair-histogram blocks), after a warmup and
+    a prefetch that ran programs and staged blocks for both executors;
+    each result equals its solo run's within 1e-5 (counts equal)."""
+    import threading
+
+    from mdanalysis_mpi_tpu_torch import Universe, _build
+    from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF, InterRDF
+    from mdanalysis_mpi_tpu_torch.io.memory import MemoryReader
+    from mdanalysis_mpi_tpu_torch.parallel.executors import DeviceBlockCache
+    from mdanalysis_mpi_tpu_torch.service import AnalysisJob, Scheduler
+    from mdanalysis_mpi_tpu_torch.testing import make_water_universe
+
+    _card()
+    u = _serve_universe()
+    u_b = Universe(u.topology, MemoryReader(u.trajectory._coords))
+    uw = make_water_universe(n_waters=400, n_frames=16, box=23.0, seed=3)
+    ow = uw.select_atoms("name OW")
+    kw = {"transfer_dtype": "int16"}
+    jobs = [AnalysisJob(AlignedRMSF(u, select="name CA", engine="fused"),
+                        backend="torch", batch_size=16,
+                        executor_kwargs=dict(kw), priority=2),
+            AnalysisJob(AlignedRMSF(u_b, select="name CA", engine="fused"),
+                        backend="mesh", batch_size=16,
+                        executor_kwargs=dict(kw), priority=1),
+            AnalysisJob(InterRDF(ow, ow, nbins=40, range=(0.0, 10.0)),
+                        backend="torch", batch_size=4)]
+    sched = Scheduler(n_workers=1, autostart=False,
+                      cache=DeviceBlockCache())
+    assert sched.warmup(jobs[:1])["executables"] > 0
+    assert sched.warmup(jobs[1:2])["executables"] > 0
+    handles = [sched.submit(j) for j in jobs]
+    assert sched.prefetch_pending() > 0
+    names = []
+    orig = _build.count_launch
+
+    def counting(wrapper):
+        names.append(threading.current_thread().name)
+        orig(wrapper)
+
+    torch.cuda.synchronize()
+    f0, p0 = fp.planar_sums.launches, fd.pair_histogram.launches
+    _build.count_launch = counting
+    try:
+        sched.start()
+        assert sched.drain(timeout=300)
+        torch.cuda.synchronize()
+    finally:
+        _build.count_launch = orig
+        sched.shutdown()
+    assert fp.planar_sums.launches - f0 == 16
+    assert fd.pair_histogram.launches - p0 == 4
+    assert names and all(n.startswith("mdtpu-serve-") for n in names)
+    assert sched.telemetry.snapshot()["admission_shed_serial"] == 0
+    for x in (u, u_b):
+        x.trajectory.__dict__.pop("_quant_max_hints", None)
+    solo_a = AlignedRMSF(u, select="name CA", engine="fused").run(
+        backend="torch", batch_size=16, transfer_dtype="int16")
+    solo_b = AlignedRMSF(u_b, select="name CA", engine="fused").run(
+        backend="mesh", batch_size=16, transfer_dtype="int16")
+    solo_r = InterRDF(ow, ow, nbins=40, range=(0.0, 10.0)).run(
+        backend="torch", batch_size=4)
+    for h, s in zip(handles[:2], (solo_a, solo_b)):
+        np.testing.assert_allclose(h.result().results.rmsf,
+                                   s.results.rmsf, atol=1e-5, rtol=0)
+    got = handles[2].result()
+    assert got._resolved_engine == "pallas"
+    np.testing.assert_array_equal(got.results.count, solo_r.results.count)
+    np.testing.assert_allclose(got.results.rdf, solo_r.results.rdf,
+                               rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_open_breaker_refuses_instead_of_serial():
+    """On the card a job whose device breakers are all open fails with
+    ``BackendUnavailableError`` and never runs on serial (no reroute is
+    counted, no result lands); after the cooldown the half-open probe on
+    the card closes the breaker and the job runs with the fused
+    kernel."""
+    from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
+    from mdanalysis_mpi_tpu_torch.reliability import breaker, faults
+    from mdanalysis_mpi_tpu_torch.service import (BackendUnavailableError,
+                                                  Scheduler)
+
+    _card()
+    u = _serve_universe()
+    now = [0.0]
+    board = breaker.BreakerBoard(threshold=2, cooldown_s=30.0,
+                                 clock=lambda: now[0])
+    sched = Scheduler(n_workers=1, breakers=board)
+    kw = dict(backend="torch", batch_size=16, coalesce=False,
+              executor_kwargs={"transfer_dtype": "int16"})
+    try:
+        with faults.inject(faults.FaultSpec("kernel", "raise", times=None)):
+            bad = [sched.submit(AlignedRMSF(u, select="name CA",
+                                            engine="fused"), **kw)
+                   for _ in range(2)]
+            assert sched.drain(timeout=120)
+        assert all(h.error is not None for h in bad)
+        assert board.get("torch").state == breaker.OPEN
+        h = sched.submit(AlignedRMSF(u, select="name CA", engine="fused"),
+                         **kw)
+        assert sched.drain(timeout=120)
+        with pytest.raises(BackendUnavailableError):
+            h.result(timeout=1)
+        assert h.error.breakers == ("torch",)
+        assert "rmsf" not in h.job.analysis.results
+        assert sched.telemetry.breaker_reroutes == 0
+        now[0] += 31.0
+        n0 = fp.planar_sums.launches
+        ok = sched.submit(AlignedRMSF(u, select="name CA", engine="fused"),
+                          **kw)
+        assert sched.drain(timeout=120)
+        torch.cuda.synchronize()
+        assert ok.error is None and board.get("torch").state == "closed"
+        assert fp.planar_sums.launches - n0 == 8
+    finally:
+        sched.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_warmup_builds_and_stage_fills_the_cache():
+    """``MeshExecutor.warmup`` over two shards of the card runs programs
+    on each (the library loaded first); ``stage`` fills the cache under
+    the keys the run reads: the run after them misses nothing and
+    equals a repeat of a run that staged its own blocks."""
+    from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
+    from mdanalysis_mpi_tpu_torch.parallel.executors import (
+        DeviceBlockCache, MeshExecutor, stage_analysis, warmup_analysis)
+
+    _card()
+    u = _serve_universe()
+    cache = DeviceBlockCache()
+    ex = MeshExecutor(batch_size=16, devices=["cuda:0"] * 2,
+                      block_cache=cache, transfer_dtype="int16")
+    assert warmup_analysis(AlignedRMSF(u, select="name CA",
+                                       engine="fused"), ex) > 0
+    assert stage_analysis(AlignedRMSF(u, select="name CA",
+                                      engine="fused"), ex) == 2
+    misses = cache.misses
+    got = AlignedRMSF(u, select="name CA", engine="fused").run(backend=ex)
+    assert cache.misses == misses
+    u2 = _serve_universe()
+    own = MeshExecutor(batch_size=16, devices=["cuda:0"] * 2,
+                       block_cache=DeviceBlockCache(),
+                       transfer_dtype="int16")
+    AlignedRMSF(u2, select="name CA", engine="fused").run(backend=own)
+    again = AlignedRMSF(u2, select="name CA", engine="fused").run(
+        backend=own)
+    np.testing.assert_array_equal(got.results.rmsf, again.results.rmsf)

@@ -185,7 +185,24 @@ mx = MeshExecutor(devices=["cpu"] * 2, batch_size=2, scan_k=2,
                   reliability=ReliabilityRuntime(ReliabilityPolicy()),
                   block_cache=DeviceBlockCache())
 assert np.isfinite(RMSF(ca).run(backend=mx).results.rmsf).all()
-assert warmup_analysis(AlignedRMSF(u2, select="name CA"), mx) == 0
+assert warmup_analysis(AlignedRMSF(u2, select="name CA"), mx) > 0
+# the serving slice: every module of the service package imports, and
+# a served fused job runs through the scheduler with its journal
+from mdanalysis_mpi_tpu_torch import service
+for m in pkgutil.iter_modules(service.__path__):
+    importlib.import_module(service.__name__ + "." + m.name)
+sched = service.Scheduler(n_workers=1, autostart=False,
+                          cache=DeviceBlockCache(),
+                          journal=os.path.join(tmp, "jobs.jsonl"))
+hs = sched.submit(AlignedRMSF(u2, select="name CA", engine="fused"),
+                  backend="torch", batch_size=4,
+                  executor_kwargs={"device": "cpu",
+                                   "transfer_dtype": "int16"})
+sched.start()
+assert sched.drain(timeout=120)
+sched.shutdown()
+assert np.isfinite(hs.result().results.rmsf).all()
+assert service.Scheduler.recover(os.path.join(tmp, "jobs.jsonl"))["done"]
 assert "mpi4py" not in sys.modules
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "mdanalysis_mpi_tpu")
@@ -215,6 +232,8 @@ if not torch.cuda.is_available():
                                          cb).run(),
                  lambda: RMSF(ca).run(backend="mesh"),
                  lambda: RMSF(ca).run_streaming(),
+                 lambda: service.AnalysisJob(RMSF(ca)).analysis.run(
+                     backend=service.AnalysisJob(RMSF(ca)).backend),
                  lambda: dryrun_multichip(2)):
         try:
             call()

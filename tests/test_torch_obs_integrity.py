@@ -7,8 +7,8 @@ seed): a store or checkpoint either package wrote verifies in the
 other.  The port's known-metric registry (the zero-injected name
 tuples of ``obs/metrics.py``) equals the JAX package's, and so does the
 Prometheus rendering of the same series, and so does the store-read
-usage split.  ``obs/usage.reconcile`` on a journal path needs
-``service/journal`` (ROADMAP A10) and raises an error that names it.
+usage split.  ``obs/usage.reconcile`` on a journal path reads the
+journal through the port's ``service/journal``.
 """
 
 import numpy as np
@@ -332,8 +332,28 @@ def test_saved_context_attributes_another_thread():
 
 
 def test_journal_reconcile_names_a10(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        usage.reconcile({}, str(tmp_path / "journal.jsonl"))
+    """``reconcile`` on a journal path replays it (the port's
+    ``service/journal``): a job served through a journaled scheduler
+    reconciles one-for-one, exactly as on the replayed dict."""
+    from mdanalysis_mpi_tpu_torch.analysis import RMSF
+    from mdanalysis_mpi_tpu_torch.obs.metrics import unified_snapshot
+    from mdanalysis_mpi_tpu_torch.service import Scheduler
+    from mdanalysis_mpi_tpu_torch.service.journal import replay_fleet
+    from mdanalysis_mpi_tpu_torch.testing import make_protein_universe
+
+    path = str(tmp_path / "journal.jsonl")
+    u = make_protein_universe(n_residues=6, n_frames=8, seed=3)
+    base = unified_snapshot()
+    with Scheduler(n_workers=1, journal=path) as sched:
+        h = sched.submit(RMSF(u.select_atoms("name CA")),
+                         backend="serial", tenant="reconcile-t1")
+        h.result(timeout=60)
+        assert sched.drain(timeout=60)
+    snap = unified_snapshot()
+    out = usage.reconcile(snap, path, baseline=base)
+    assert out == usage.reconcile(snap, replay_fleet(path), baseline=base)
+    assert out["ok"] is True, out["diff"]
+    assert out["journal"] == {"reconcile-t1/done": 1}
     # a replayed journal dict reconciles without the journal module
     out = usage.reconcile({}, {"finishes": {}, "jobs": {}})
     assert out["ok"] is True and out["diff"] == {}
