@@ -9,17 +9,20 @@ Run from the root of a checkout, with no arguments::
 That runs every phase.  ``--phases 3,4,13`` runs a comma list of them
 instead (phases 1 and 2 always run; every check within a selected phase
 stays).  A phase that needs what an earlier phase builds either builds
-it itself (the water box of phases 3, 5, 10, 12, 13, 14 and 15; the
-config-1 PSF/DCD of phases 13 and 15) or refuses the selection with a
-message and exit code 2: phases 6, 8, 9, 10, 12, 14 and 15 run on phase
-4's system and result, so they need 4; phase 5 compares with phase 3's
-main case, so it needs 3.
+it itself (the water box of phases 3, 5, 10, 12, 13, 14, 15 and 16; the
+config-1 PSF/DCD of phases 13, 15 and 16) or refuses the selection with
+a message and exit code 2: phases 6, 8, 9, 10, 12, 14, 15 and 16 run on
+phase 4's system and result, so they need 4; phase 5 compares with
+phase 3's main case, so it needs 3.
 The kernel table line needs phase 3's timings: without phase 3 the
 script says so in its place.  A kernel's ``launches`` there is the
 count of its whole main path, so it is null unless every phase that
-launches it on that path ran (the fused kernel: 4, 8, 14, 15, 9, 10;
-the pair histogram: 5, 15, 10); the counts of the phases that did run
-are printed on a line of their own.
+launches it on that path ran (the fused kernel: 4, 8, 14, 15, 16, 9,
+10; the pair histogram: 5, 15, 10); the counts of the phases that did
+run are printed on a line of their own.  Phase 16's fused launches are
+made in its fleet host processes and read from their federated
+``mdtpu_fused_blocks_total``; the kernel table labels them
+(``fleet_host_launches``).
 
 Phases (each prints its own lines; any failure exits non-zero and
 prints no ok line):
@@ -358,6 +361,43 @@ prints no ok line):
    served wall beside the solo runs' walls, and every error beside its
    limit.
 
+16. The fleet tier on the card (after phase 15, on phase 4's system and
+   phase 5's water box).  Phase 4's heavy atoms (50,000) over its 2,048
+   frames become a PSF and an int16 block store of 512-frame chunks,
+   and the water box a PSF and a float32 DCD, in a temporary directory.
+   (a) ``FleetController(trace=True, device='cuda')`` spawns two
+   ``fleet-host`` processes on the card (each with an 8 GiB
+   ``DeviceBlockCache`` and ``MDTPU_FLEET_RUN_DELAY=0.5``, which holds
+   every received job for half a second) and serves four jobs from the
+   files: tenants A and B ``aligned-rmsf`` (fused, int16, batch 512), C
+   ``rmsd`` sharded in two chunk-aligned windows, D ``rdf`` of the
+   oxygens (75 bins over (0, 15) Å, batch 16, ``engine: pallas``).  The
+   host whose received-job instant arrives first is ``kill -9``'d; then
+   the fleet drains.  Every job must be done, the journal must hold one
+   finish for each host job, one host lost and at least one job
+   migrated, each host's federated ``mdtpu_fused_blocks_total`` at
+   least 8 per AlignedRMSF job it finished, no serial shed or breaker
+   reroute on any host, the merged trace two pids or more with the
+   migrated job's trace id on two, and the lost host a flight dump.
+   (b) On the same fleet, an ensemble of two InterRDF windows of 32
+   frames (``engine: pallas``).  The served results are held to
+   in-process runs on the card: A and B within 1e-5 Å of
+   ``AlignedRMSF(engine='fused')`` on the store (bit-equality printed),
+   C within 1e-5 Å of the unsharded RMSD, D's counts EQUAL to
+   ``InterRDF(engine='pallas')``'s and its g(r) within 1e-5 relative,
+   the ensemble's count equal to the sum of the two windows' kernel
+   counts and its g(r) their frame-weighted mean within 1e-5.  (c)
+   ``python -m mdanalysis_mpi_tpu_torch fleet JOBS.json --hosts 2
+   --metrics-out FILE`` (no ``--backend``, no ``--device``) on config
+   1's PSF/DCD: AlignedRMSF fused int16, RMSD and RadiusOfGyration of
+   the Cα, batch 32, each with an ``output``; its hosts' fused blocks at
+   least 8 and no serial shed, each ``.npz`` within 1e-5 of the run in
+   this process.  Prints the hosts' spawn-to-join seconds,
+   ``nvidia-smi``'s compute apps of the hosts before the kill and after
+   the drain, each host job's host, latency, migrations and completion
+   resends before the ack, the per-host fused blocks, the completion
+   JSON's bytes and encode time, and the wave and phase walls.
+
 Phase 3 also holds the pair-histogram kernel (``ops/fused_distances.
 pair_histogram``, ``csrc/pair_histogram.cu``) against
 ``pair_histogram_plain`` on the card: the main shape (the first block of
@@ -522,7 +562,7 @@ VACF_RTOL = 1e-3                     # test_vacf.py's elementwise rtol
 VACF_FLOOR = 1e-2                    # lags held to it: |C| >= this x C(0)
 CLI_TOL = 1e-5
 # every phase, in the order they run
-PHASE_ORDER = (1, 2, 3, 4, 8, 14, 5, 15, 6, 9, 10, 12, 13, 7, 11)
+PHASE_ORDER = (1, 2, 3, 4, 8, 14, 5, 15, 16, 6, 9, 10, 12, 13, 7, 11)
 
 
 class SmokeFailure(Exception):
@@ -4211,13 +4251,430 @@ def phase_serve(card, u, uw, ow):
     return fused, ph
 
 
+# ---------------------------------------------------------------- phase 16
+
+#: the fleet's hosts and the device they serve on
+FLEET_HOSTS = 2
+FLEET_DEVICE = "cuda"
+#: each host's DeviceBlockCache
+FLEET_CACHE_MB = 8192
+#: the chaos knob's hold of every received job on a host: the kill lands
+#: while the victim still holds its first job
+FLEET_RUN_DELAY = "0.5"
+FLEET_TOL = 1e-5
+#: the command line's hosts get no --device (the default, the card)
+FLEET_CLI_ARGS = ()
+
+
+def fleet_files(u, uw, tmp):
+    """Phase 16's inputs in ``tmp``: the heavy atoms of phase 4's frames
+    as a PSF and an int16 block store of 512-frame chunks, and phase 5's
+    box as a PSF and a float32 DCD → dict of paths and the heavy
+    universe's frames."""
+    from mdanalysis_mpi_tpu_torch.io.dcd import write_dcd
+    from mdanalysis_mpi_tpu_torch.io.psf import write_psf
+    from mdanalysis_mpi_tpu_torch.io.store import ingest
+
+    t0 = time.perf_counter()
+    idx = u.select_atoms("heavy").indices
+    n_frames = u.trajectory.n_frames
+    frames, _ = u.trajectory.read_block(0, n_frames, sel=idx)
+    hu = heavy_universe(frames)
+    paths = {"psf": os.path.join(tmp, "heavy.psf"),
+             "store": os.path.join(tmp, "heavy.store"),
+             "wpsf": os.path.join(tmp, "water.psf"),
+             "wdcd": os.path.join(tmp, "water.dcd")}
+    write_psf(paths["psf"], hu.topology)
+    summary = ingest(hu.trajectory, paths["store"], chunk_frames=E2E_BATCH,
+                     quant="int16")
+    check(summary["n_chunks"] == -(-n_frames // E2E_BATCH)
+          and summary["scale_overflow_chunks"] == 0,
+          f"fleet store: {summary['n_chunks']} chunks, "
+          f"{summary['scale_overflow_chunks']} overflowing the scale")
+    write_psf(paths["wpsf"], uw.topology)
+    nw = uw.trajectory.n_frames
+    wframes, wdims = uw.trajectory.read_block(0, nw)
+    write_dcd(paths["wdcd"], wframes, dimensions=wdims)
+    print(f"fleet inputs: heavy PSF ({len(idx)} atoms) and int16 store "
+          f"({n_frames} frames, {summary['n_chunks']} chunks of "
+          f"{E2E_BATCH}, {summary['bytes']} bytes, ingest {summary['wall_s']}"
+          f" s); water PSF + DCD ({uw.atoms.n_atoms} atoms x {nw} frames, "
+          f"{os.path.getsize(paths['wdcd'])} bytes); "
+          f"{time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def host_series(ctrl, name):
+    """``{host: sum of the counter}`` from the hosts' federated
+    snapshots."""
+    return {hid: sum(m.get(name, {"values": {}})["values"].values())
+            for hid, m in ctrl.host_metrics().items()}
+
+
+def gpu_apps(pids, label):
+    """Prints the card's compute apps of ``pids`` (nvidia-smi)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout
+    except (OSError, subprocess.SubprocessError) as exc:
+        print(f"fleet nvidia-smi ({label}): {type(exc).__name__}: {exc}")
+        return
+    rows = [ln.strip() for ln in out.splitlines() if ln.strip()]
+    mine = [r for r in rows if r.split(",")[0].strip() in
+            {str(p) for p in pids}]
+    print(f"fleet nvidia-smi compute apps ({label}; host pids "
+          f"{sorted(pids)}): {mine or rows}")
+
+
+def fleet_wave(card, paths, tmp):
+    """Phase 16 (a) and (b): a two-host fleet on the card serves four
+    jobs while one host is ``kill -9``'d, then a two-member InterRDF
+    ensemble → (the hosts' fused launches in (a), the served results)."""
+    from mdanalysis_mpi_tpu_torch.service.fleet import (DONE,
+                                                        FleetController)
+    from mdanalysis_mpi_tpu_torch.service.journal import replay_fleet
+
+    common = {"topology": paths["psf"], "trajectory": paths["store"],
+              "select": "heavy", "batch_size": E2E_BATCH}
+    fused = {**common, "analysis": "aligned-rmsf", "engine": "fused",
+             "transfer_dtype": "int16"}
+    rdf = {"analysis": "rdf", "topology": paths["wpsf"],
+           "trajectory": paths["wdcd"], "select": "name OW", "nbins": 75,
+           "r_max": 15.0, "batch_size": RDF_BATCH, "engine": "pallas"}
+    specs = {"A": {**fused, "tenant": "A"}, "B": {**fused, "tenant": "B"},
+             "C": {**common, "analysis": "rmsd", "shards": 2,
+                   "tenant": "C"},
+             "D": {**rdf, "tenant": "D"}}
+    workdir = os.path.join(tmp, "fleet")
+    env = {"MDTPU_FLEET_RUN_DELAY": FLEET_RUN_DELAY}
+    out = {}
+    with FleetController(workdir, host_ttl_s=10.0, trace=True,
+                         device=FLEET_DEVICE) as ctrl:
+        done_calls = {}
+        apply_done = ctrl._apply_done
+
+        def counting_apply(hid, msg):
+            done_calls[msg.get("fp")] = done_calls.get(msg.get("fp"), 0) + 1
+            return apply_done(hid, msg)
+
+        ctrl._apply_done = counting_apply
+        t0 = time.perf_counter()
+        procs = [ctrl.spawn_host(hb_interval_s=0.1, env=env,
+                                 cache_mb=FLEET_CACHE_MB)
+                 for _ in range(FLEET_HOSTS)]
+        joined = {}
+        while len(joined) < FLEET_HOSTS and time.perf_counter() - t0 < 120:
+            with ctrl._lock:
+                for hid in ctrl._hosts:
+                    joined.setdefault(hid, time.perf_counter() - t0)
+            time.sleep(0.02)
+        check(len(joined) == FLEET_HOSTS,
+              f"fleet hosts joined: {sorted(joined)} of {FLEET_HOSTS}")
+        print("fleet hosts spawn-to-join: " + ", ".join(
+            f"{h} {s:.2f} s" for h, s in sorted(joined.items()))
+              + f" (pids {[p.pid for p in procs]}) on {card}")
+        t_wave = time.perf_counter()
+        jobs = {k: ctrl.submit(dict(s)) for k, s in specs.items()}
+        # kill the host whose "job received" instant came back first:
+        # it holds that job inside its run delay
+        victim = None
+        deadline = time.perf_counter() + 30
+        while victim is None and time.perf_counter() < deadline:
+            for hid, evs in ctrl.host_trace_events().items():
+                if any(ev.get("name") == "fleet_job_received"
+                       for ev in evs):
+                    victim = hid
+                    break
+            time.sleep(0.02)
+        check(victim is not None, "no host reported a received job")
+        gpu_apps(ctrl._host_pids.values(), "before the kill")
+        check(ctrl.kill_host(victim), f"could not kill {victim}")
+        t_kill = time.perf_counter() - t_wave
+        drained = ctrl.drain(timeout=600)
+        wall = time.perf_counter() - t_wave
+        check(drained, "phase 16's fleet did not drain in 600 s")
+        survivor = next(h for h in joined if h != victim)
+        gpu_apps([ctrl._host_pids[survivor]], "after the drain")
+        states = {k: j.state for k, j in jobs.items()}
+        check(all(s == DONE for s in states.values()),
+              f"fleet jobs {states}: "
+              f"{ {k: j.error for k, j in jobs.items() if j.error} }")
+        stats = ctrl.stats()
+        n_fused = {h: 0 for h in joined}
+        leaves = [c for j in jobs.values() for c in (j.children or [j])]
+        for j in (jobs["A"], jobs["B"]):
+            n_fused[j.host] += 1
+        # the hosts' counters ship on heartbeats, after the completions
+        want = {h: 8 * n for h, n in n_fused.items()}
+        deadline = time.perf_counter() + 20
+        while time.perf_counter() < deadline:
+            blocks = host_series(ctrl, "mdtpu_fused_blocks_total")
+            if all(blocks.get(h, 0) >= w for h, w in want.items()):
+                break
+            time.sleep(0.05)
+        blocks = host_series(ctrl, "mdtpu_fused_blocks_total")
+        shed = host_series(ctrl, "mdtpu_admission_shed_serial_total")
+        reroutes = host_series(ctrl, "mdtpu_breaker_reroutes_total")
+        # the migrated job's trace id on two pids
+        migrated = [c.fp for c in leaves if c.migrations > 0]
+        stitched = None
+        deadline = time.perf_counter() + 10
+        while migrated and stitched is None and \
+                time.perf_counter() < deadline:
+            per_fp = {}
+            for hid, evs in ctrl.host_trace_events().items():
+                for ev in evs:
+                    args = ev.get("args") or {}
+                    for fp in migrated:
+                        if (args.get("trace_id") == fp
+                                or fp in (args.get("trace_ids") or ())):
+                            per_fp.setdefault(fp, set()).add(ev.get("pid"))
+            stitched = next((fp for fp, p in per_fp.items()
+                             if len(p) >= 2), None)
+            if stitched is None:
+                time.sleep(0.1)
+        trace_path = ctrl.export_fleet_trace(os.path.join(tmp, "fleet.json"))
+        with open(trace_path) as f:
+            pids = {ev["pid"] for ev in json.load(f)["traceEvents"]
+                    if ev.get("ph") != "M"}
+        results = {k: j.result_arrays() for k, j in jobs.items()}
+        print(f"fleet wave: {len(jobs)} jobs ({len(leaves)} host jobs) on "
+              f"{FLEET_HOSTS} hosts, {victim} kill -9'd "
+              f"{t_kill:.2f} s into the wave, drained in {wall:.2f} s on "
+              f"{card}")
+        for k, j in jobs.items():
+            for c in (j.children or [j]):
+                resends = done_calls.get(c.fp, 0) - 1
+                print(f"fleet job {k} {c.fp}: host {c.host}, latency "
+                      f"{c.latency_s:.3f} s, migrations {c.migrations}, "
+                      f"completion resends before the ack {resends}")
+        print(f"fleet per-host federated mdtpu_fused_blocks_total {blocks} "
+              f"(AlignedRMSF jobs finished {n_fused}); serial sheds "
+              f"{shed}, breaker reroutes {reroutes}; stats hosts_lost "
+              f"{stats['hosts_lost']}, jobs_migrated "
+              f"{stats['jobs_migrated']}; trace pids {len(pids)}, "
+              f"stitched {stitched}")
+        check(stats["hosts_lost"] == 1 and stats["jobs_migrated"] >= 1,
+              f"hosts_lost {stats['hosts_lost']}, jobs_migrated "
+              f"{stats['jobs_migrated']}")
+        check(all(blocks.get(h, 0) >= w for h, w in want.items()),
+              f"federated fused blocks {blocks} below 8 a finished "
+              f"AlignedRMSF job ({want})")
+        check(not any(shed.values()) and not any(reroutes.values()),
+              f"a fleet job left the card: serial sheds {shed}, "
+              f"reroutes {reroutes}")
+        check(len(pids) >= 2 and stitched is not None,
+              f"merged trace: {len(pids)} pids, stitched trace id "
+              f"{stitched} of migrated {migrated}")
+        # (b) the ensemble of two InterRDF windows, on the survivor
+        t_ens = time.perf_counter()
+        ens = ctrl.submit({**rdf, "tenant": "E",
+                           "ensemble": [{"start": 0, "stop": 32},
+                                        {"start": 32, "stop": 64}]})
+        check(ctrl.drain(timeout=300) and ens.state == DONE,
+              f"the InterRDF ensemble ended {ens.state}: {ens.error}")
+        t_ens = time.perf_counter() - t_ens
+        out["ensemble"] = ens.result_arrays()
+        host_launches = sum(blocks.values())
+    meta = replay_fleet(os.path.join(workdir, "fleet_journal.jsonl"))
+    fps = [c.fp for c in leaves] + [c.fp for c in ens.children]
+    once = {fp: meta["finishes"].get(fp) for fp in fps}
+    check(all(n == 1 for n in once.values()),
+          f"journal finishes per job {once}")
+    dumps = [p for p in os.listdir(workdir)
+             if p.startswith("flight_host_loss_")]
+    check(dumps, "the lost host left no flight dump")
+    print(f"fleet journal: exactly one finish for each of {len(fps)} host "
+          f"jobs; flight dumps {dumps}; ensemble of 2 InterRDF members "
+          f"{t_ens:.2f} s")
+    out.update(results)
+    return host_launches, out, wall
+
+
+def fleet_encode(arrays):
+    """The completion's JSON (the host's ``.tolist()`` of the result
+    arrays) → (bytes, encode s, decode is float32-exact)."""
+    t0 = time.perf_counter()
+    line = (json.dumps({"ev": "done", "results": {
+        k: np.asarray(v).tolist() for k, v in arrays.items()}}) + "\n")
+    t_enc = time.perf_counter() - t0
+    back = json.loads(line)["results"]
+    exact = all(np.array_equal(np.asarray(back[k], np.float32),
+                               np.asarray(v, np.float32))
+                for k, v in arrays.items())
+    return len(line.encode()), t_enc, exact
+
+
+def fleet_solos(card, paths, got):
+    """Phase 16's served results against in-process runs on the card."""
+    from mdanalysis_mpi_tpu_torch import Universe
+    from mdanalysis_mpi_tpu_torch.analysis import (AlignedRMSF, InterRDF,
+                                                   RMSD)
+
+    run_kw = dict(backend="torch", device=FLEET_DEVICE, batch_size=E2E_BATCH)
+    t0 = time.perf_counter()
+    solo = AlignedRMSF(Universe(paths["psf"], paths["store"]), select="heavy",
+                       engine="fused").run(transfer_dtype="int16", **run_kw)
+    want = solo.results.rmsf
+    for k in ("A", "B"):
+        g = got[k]["rmsf"]
+        err = float(np.abs(g - want).max())
+        print(f"fleet {k} vs the in-process AlignedRMSF(engine='fused') on "
+              f"the store: max |d rmsf| {err:.3g} A (limit {FLEET_TOL}), "
+              f"bit-equal {np.array_equal(g, want)}")
+        check(err <= FLEET_TOL, f"served {k} RMSF {err:.3g} A from solo")
+    nbytes, t_enc, exact = fleet_encode(got["A"])
+    print(f"fleet completion of A: {nbytes} bytes of JSON "
+          f"({sum(np.asarray(v).size for v in got['A'].values())} floats), "
+          f"encoded in {t_enc:.3f} s here; float32 -> JSON -> float32 "
+          f"exact {exact}")
+    check(exact, "the completion's JSON does not round-trip float32")
+    rmsd = RMSD(Universe(paths["psf"], paths["store"]), select="heavy").run(
+        **run_kw).results.rmsd
+    err = float(np.abs(got["C"]["rmsd"] - rmsd).max())
+    print(f"fleet C (2 shards merged) vs the unsharded in-process RMSD: "
+          f"max |d| {err:.3g} A (limit {FLEET_TOL}), bit-equal "
+          f"{np.array_equal(got['C']['rmsd'], rmsd)}")
+    check(got["C"]["rmsd"].shape == rmsd.shape and err <= FLEET_TOL,
+          f"served C RMSD {err:.3g} A from the unsharded run")
+    uw = Universe(paths["wpsf"], paths["wdcd"])
+    ow = uw.select_atoms("name OW")
+    rdf_kw = dict(backend="torch", device=FLEET_DEVICE, batch_size=RDF_BATCH)
+
+    def kernel_rdf(**window):
+        return InterRDF(ow, ow, nbins=75, range=(0.0, 15.0),
+                        engine="pallas").run(**window, **rdf_kw).results
+
+    r = kernel_rdf()
+    e_r = rel_err(got["D"]["rdf"], r.rdf)
+    same = np.array_equal(got["D"]["count"], r.count)
+    print(f"fleet D vs the in-process InterRDF(engine='pallas'): counts "
+          f"equal {same}, g(r) {e_r:.3g} relative (limit {FLEET_TOL})")
+    check(same and e_r <= FLEET_TOL,
+          f"served D: counts equal {same}, g(r) {e_r:.3g} relative")
+    halves = [kernel_rdf(start=0, stop=32), kernel_rdf(start=32, stop=64)]
+    ens = got["ensemble"]
+    count = halves[0].count.astype(np.float64) + halves[1].count
+    g = 0.5 * (np.asarray(halves[0].rdf, np.float64) + halves[1].rdf)
+    same = np.array_equal(ens["count"], count)
+    e_g = rel_err(ens["rdf"], g)
+    print(f"fleet ensemble (2 InterRDF windows of 32 frames): merged count "
+          f"equal to the sum of the in-process kernel runs' {same}, "
+          f"frame-weighted g(r) {e_g:.3g} relative (limit {FLEET_TOL}); "
+          f"in-process runs {time.perf_counter() - t0:.1f} s on {card}")
+    check(same and e_g <= FLEET_TOL,
+          f"ensemble: counts equal {same}, g(r) {e_g:.3g} relative")
+
+
+def fleet_cli(card, tmp):
+    """Phase 16 (c): ``python -m mdanalysis_mpi_tpu_torch fleet`` on
+    config 1's PSF/DCD, no --backend and no --device → its hosts' fused
+    blocks."""
+    from mdanalysis_mpi_tpu_torch import Universe
+    from mdanalysis_mpi_tpu_torch.utils.config import (AnalysisConfig,
+                                                       build_analysis)
+
+    psf, dcd, _ = write_config1(tmp)
+    specs = [{"analysis": "aligned-rmsf", "engine": "fused",
+              "transfer_dtype": "int16", "tenant": "a"},
+             {"analysis": "rmsd", "tenant": "d"},
+             {"analysis": "rgyr", "tenant": "g"}]
+    keys = ("rmsf", "rmsd", "rgyr")
+    for s in specs:
+        s["output"] = os.path.join(tmp, f"fleet-{s['tenant']}.npz")
+    path = os.path.join(tmp, "fleet-jobs.json")
+    with open(path, "w") as f:
+        json.dump({"topology": psf, "trajectory": dcd,
+                   "defaults": {"select": "name CA", "batch_size": 32},
+                   "jobs": specs}, f)
+    metrics = os.path.join(tmp, "fleet-metrics.json")
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mdanalysis_mpi_tpu_torch", "fleet", path,
+         "--hosts", "2", "--metrics-out", metrics, *FLEET_CLI_ARGS],
+        capture_output=True, text=True, env=env, cwd=tmp, timeout=600)
+    t_cli = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"fleet exited {proc.returncode}: {proc.stderr[-2000:]}")
+    doc = json.loads(proc.stdout.strip().splitlines()[-1])
+    states = [r["state"] for r in doc["jobs"]]
+    check(states == ["done"] * 3, f"fleet job states {states}")
+    with open(metrics) as f:
+        snap = json.load(f)
+
+    def total(name):
+        return sum(snap[name]["values"].values())
+
+    blocks = total("mdtpu_fused_blocks_total")
+    shed = total("mdtpu_admission_shed_serial_total")
+    check(blocks >= 8 and shed == 0,
+          f"the fleet command's hosts: {blocks} fused blocks (8 expected "
+          f"of its AlignedRMSF), {shed} serial sheds")
+    u = Universe(psf, dcd)
+    errs = []
+    for s, key in zip(specs, keys):
+        cfg = AnalysisConfig(analysis=s["analysis"], topology=psf,
+                             trajectory=dcd, select="name CA",
+                             engine=s.get("engine", "auto"))
+        run_kw = {"batch_size": 32, "device": FLEET_DEVICE}
+        if "transfer_dtype" in s:
+            run_kw["transfer_dtype"] = s["transfer_dtype"]
+        want = np.asarray(build_analysis(cfg, universe=u).run(
+            **run_kw).results.materialize()[key])
+        got = np.load(s["output"])[key]
+        errs.append(float(np.abs(got - want).max()))
+    print(f"fleet command: python -m mdanalysis_mpi_tpu_torch fleet --hosts 2 "
+          f"(aligned-rmsf fused int16, rmsd, rgyr on config 1's PSF/DCD, no "
+          f"--backend, no --device): process {t_cli:.2f} s, its wall "
+          f"{doc['wall_s']} s; hosts' fused blocks {blocks:g}, serial sheds "
+          f"{shed:g}; npz vs in-process max |d| "
+          f"{', '.join(f'{e:.3g}' for e in errs)} (limit {FLEET_TOL}) on "
+          f"{card}")
+    check(max(errs) <= FLEET_TOL, f"fleet command results {errs} from the "
+          "in-process runs")
+
+
+def phase_fleet(card, u, uw):
+    """Phase 16: the fleet tier on the card → the fleet hosts' fused
+    launches on its main path (the federated counter)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    if FLEET_DEVICE != "cpu":
+        # the hosts get the card's memory that earlier phases cached
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="mdtpu_fleet_")
+    try:
+        paths = fleet_files(u, uw, tmp)
+        launches, got, wall = fleet_wave(card, paths, tmp)
+        fleet_solos(card, paths, got)
+        fleet_cli(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"fleet phase: {time.perf_counter() - t_phase:.1f} s (wave "
+          f"{wall:.1f} s), fused launches in the fleet hosts {launches} "
+          f"(their federated mdtpu_fused_blocks_total) on {card}")
+    return launches
+
+
 #: phases that run on the water box built once for them
-WATER_PHASES = {3, 5, 10, 12, 13, 14, 15}
-#: phases that launch each kernel on its main path
-FUSED_PHASES = (4, 8, 14, 15, 9, 10)
+WATER_PHASES = {3, 5, 10, 12, 13, 14, 15, 16}
+#: phases that launch each kernel on its main path (phase 16's fused
+#: launches are its fleet hosts', read from their federated counter;
+#: its hosts' pair-histogram launches have no counter that crosses
+#: processes, so that kernel's count leaves them out)
+FUSED_PHASES = (4, 8, 14, 15, 16, 9, 10)
 PH_PHASES = (5, 15, 10)
 #: phases that run on what another phase builds → that phase
-NEEDS = {6: 4, 8: 4, 9: 4, 10: 4, 12: 4, 14: 4, 15: 4, 5: 3}
+NEEDS = {6: 4, 8: 4, 9: 4, 10: 4, 12: 4, 14: 4, 15: 4, 16: 4, 5: 3}
 NEEDS_WHY = {4: "phase 4's system and its RMSF",
              3: "phase 3's main pair-histogram case"}
 
@@ -4287,6 +4744,7 @@ def main(argv=None):
         print(f"phases: {sorted(phases)} of {list(PHASE_ORDER)} (in the "
               f"order {[p for p in PHASE_ORDER if p in phases]})")
     launches = ph_launches = 0
+    fleet_launches = None
     rows = ph_rows = None
     try:
         card = phase_device()
@@ -4313,6 +4771,9 @@ def main(argv=None):
             serve_fused, serve_ph = phase_serve(card, u_e2e, u, ow)
             launches += serve_fused
             ph_launches += serve_ph
+        if 16 in phases:
+            fleet_launches = phase_fleet(card, u_e2e, u)
+            launches += fleet_launches
         if 6 in phases:
             phase_rmsd(card, u_e2e)
         if 9 in phases:
@@ -4345,15 +4806,24 @@ def main(argv=None):
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": None}
 
+    if fleet_launches is not None:
+        print(f"{KERNEL_NAME} launches: {launches} on the main path, of "
+              f"which {fleet_launches} in phase 16's fleet host processes "
+              f"(their federated mdtpu_fused_blocks_total), "
+              f"{launches - fleet_launches} in this process")
+
     if rows is None:
         print("kernel table: not printed (phase 3, which measures the "
               "kernels against their plain versions, was not selected)")
     else:
+        fused_entry = entry(KERNEL_NAME, KERNEL_SOURCE, KERNEL_REPLACES,
+                            main_path_launches(KERNEL_NAME, launches,
+                                               FUSED_PHASES, phases),
+                            worst, rows["main-int16"])
+        # the part of ``launches`` made in other processes, so labelled
+        fused_entry["fleet_host_launches"] = fleet_launches
         print(json.dumps({"kernels": [
-            entry(KERNEL_NAME, KERNEL_SOURCE, KERNEL_REPLACES,
-                  main_path_launches(KERNEL_NAME, launches, FUSED_PHASES,
-                                     phases),
-                  worst, rows["main-int16"]),
+            fused_entry,
             entry(PH_NAME, PH_SOURCE, PH_REPLACES,
                   main_path_launches(PH_NAME, ph_launches, PH_PHASES,
                                      phases),

@@ -55,6 +55,7 @@ from mdanalysis_mpi_tpu_torch.obs.spans import (
     enable as enable_tracing,
     enabled as tracing_enabled,
     export as export_trace,
+    set_process_args,
     span,
     span_event,
     trace_path,
@@ -82,7 +83,7 @@ __all__ = [
     "METRICS", "MetricsRegistry", "to_prometheus", "unified_snapshot",
     "span", "span_event", "trace_context", "enable_tracing",
     "disable_tracing", "tracing_enabled", "export_trace", "trace_path",
-    "maybe_enable_from_env", "start_run_capture",
+    "maybe_enable_from_env", "set_process_args", "start_run_capture",
     "finish_run_capture", "abandon_run_capture", "flight",
     "flight_dump", "prof", "alerts", "baseline", "AlertEngine",
     "AlertRule", "seed_rules", "usage",

@@ -47,8 +47,15 @@ holds the most recent window: the flight recorder's black box
 
 Process-wide args (:func:`set_process_args`) merge into every recorded
 event at the lowest precedence, and :func:`counter_event` records the
-continuous profiler's watermark line (``obs/prof.py``).  The JAX
-package's fleet trace shipping is not carried here yet.
+continuous profiler's watermark line (``obs/prof.py``).
+
+Fleet federation (docs/OBSERVABILITY.md "Fleet federation"): a
+``fleet-host`` process calls :func:`enable_ship_buffer` and drains
+bounded batches with :func:`drain_ship` onto its heartbeat wire; the
+controller re-anchors them on its own timeline via the wall-clock
+epoch from :func:`clock_info` and writes ONE merged trace.  The ship
+queue holds at most ``MDTPU_TRACE_SHIP_MAX`` events (16,384 unless
+set); overflow drops the oldest, counted.
 """
 
 from __future__ import annotations
@@ -66,7 +73,8 @@ MAX_EVENTS = 500_000
 
 class _TraceState:
     __slots__ = ("enabled", "path", "events", "dropped", "t0",
-                 "tid_names", "proc_args")
+                 "wall0", "tid_names", "proc_args", "ship", "ship_max",
+                 "ship_dropped")
 
     def __init__(self):
         self.enabled = False
@@ -78,10 +86,24 @@ class _TraceState:
         # silent) so the tail stays the most recent window
         self.dropped = 0
         self.t0 = time.perf_counter()
+        # wall-clock anchor of t0: what lets a fleet controller
+        # re-anchor another process's (perf_counter-relative) event
+        # timestamps onto its own timeline when stitching a merged
+        # trace (clock_info / FleetController.export_fleet_trace)
+        self.wall0 = time.time()
         self.tid_names: dict[int, str] = {}
         #: process-wide args merged (lowest precedence) into every
-        #: recorded span/event
+        #: recorded span/event — a ``fleet-host`` worker stamps its
+        #: host id here so a merged fleet timeline attributes every row
+        #: to its host
         self.proc_args: dict | None = None
+        # fleet-host ship queue (enable_ship_buffer): events copied
+        # here at record time, drained in bounded heartbeat batches;
+        # overflow drops the oldest and is counted separately
+        self.ship: deque | None = None
+        self.ship_max = int(
+            os.environ.get("MDTPU_TRACE_SHIP_MAX", "16384"))
+        self.ship_dropped = 0
 
 
 _STATE = _TraceState()
@@ -119,6 +141,9 @@ def disable(discard: bool = False) -> None:
             _STATE.events.clear()
             _STATE.tid_names.clear()
             _STATE.dropped = 0
+            if _STATE.ship is not None:
+                _STATE.ship.clear()
+            _STATE.ship_dropped = 0
 
 
 def reset() -> None:
@@ -128,7 +153,11 @@ def reset() -> None:
         _STATE.events.clear()
         _STATE.tid_names.clear()
         _STATE.dropped = 0
+        if _STATE.ship is not None:
+            _STATE.ship.clear()
+        _STATE.ship_dropped = 0
         _STATE.t0 = time.perf_counter()
+        _STATE.wall0 = time.time()
 
 
 def maybe_enable_from_env() -> None:
@@ -140,6 +169,14 @@ def maybe_enable_from_env() -> None:
     path = os.environ.get("MDTPU_TRACE_OUT")
     if path:
         enable(path)
+
+
+def clock_info() -> tuple[float, float]:
+    """``(t0, wall0)``: the perf-counter trace epoch and the wall
+    clock it corresponds to.  Event ``ts`` values are microseconds
+    past ``t0``; ``wall0 + ts/1e6`` is the event's wall time — the
+    shared axis the fleet controller stitches host traces on."""
+    return _STATE.t0, _STATE.wall0
 
 
 def n_events() -> int:
@@ -207,12 +244,85 @@ def _append(ev: dict, tid: int, thread_name: str) -> None:
         # Perfetto labels the row with the thread's name — how the
         # prefetch row is told apart from MainThread in the UI.  Kept
         # OUT of the ring (regenerated at export) so eviction can never
-        # unlabel a row.
-        st.tid_names.setdefault(tid, thread_name)
+        # unlabel a row, and pushed to the ship queue once so the
+        # controller's merged trace labels it too.
+        if tid not in st.tid_names:
+            st.tid_names[tid] = thread_name
+            if st.ship is not None:
+                st.ship.append({"ph": "M", "name": "thread_name",
+                                "pid": _PID, "tid": tid,
+                                "args": {"name": thread_name}})
         st.events.append(ev)
         if len(st.events) > MAX_EVENTS:
             st.events.popleft()          # ring: evict oldest, counted
             st.dropped += 1
+        if st.ship is not None:
+            if len(st.ship) >= st.ship_max:
+                st.ship.popleft()
+                st.ship_dropped += 1
+            st.ship.append(ev)
+
+
+def enable_ship_buffer() -> None:
+    """Start copying recorded events into the fleet ship queue
+    (``fleet-host`` processes; docs/OBSERVABILITY.md "Fleet
+    federation").  Idempotent."""
+    with _LOCK:
+        if _STATE.ship is None:
+            _STATE.ship = deque()
+
+
+def reship_thread_meta() -> None:
+    """Re-enqueue every known thread-name metadata event onto the
+    ship queue.  Metas normally ship once, on first sight of a tid —
+    a host reconnecting to a NEW controller (failover) must resend
+    them or the adopted controller's merged trace shows bare tids
+    where the row labels should be."""
+    with _LOCK:
+        ship = _STATE.ship
+        if ship is None:
+            return
+        for tid, name in _STATE.tid_names.items():
+            ship.append({"ph": "M", "name": "thread_name",
+                         "pid": _PID, "tid": tid,
+                         "args": {"name": name}})
+
+
+def drain_ship(limit: int = 2048) -> tuple[list[dict], int]:
+    """Pop up to ``limit`` queued events for shipping, plus the count
+    of events dropped from the ship queue since the last drain (the
+    disclosure that rides the heartbeat).  ``([], 0)`` when shipping
+    was never enabled."""
+    with _LOCK:
+        ship = _STATE.ship
+        if ship is None:
+            return [], 0
+        out = []
+        while ship and len(out) < limit:
+            out.append(ship.popleft())
+        dropped = _STATE.ship_dropped
+        _STATE.ship_dropped = 0
+    return out, dropped
+
+
+def requeue_ship(events: list[dict]) -> None:
+    """Put a drained batch BACK at the front of the ship queue (the
+    heartbeat send failed — the controller link is down; the events
+    re-ship on the next tick, subject to the queue bound)."""
+    if not events:
+        return
+    with _LOCK:
+        ship = _STATE.ship
+        if ship is None:
+            return
+        for ev in reversed(events):
+            ship.appendleft(ev)
+        while len(ship) > _STATE.ship_max:
+            # same drop-OLDEST policy as _append: the requeued batch
+            # is the queue's oldest end, so an outage long enough to
+            # overflow sacrifices stale events, never the newest
+            ship.popleft()
+            _STATE.ship_dropped += 1
 
 
 _PID = os.getpid()

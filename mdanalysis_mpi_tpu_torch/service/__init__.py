@@ -45,6 +45,11 @@ requests instead of re-reading per request.
   the fleet tier.
 - :mod:`~mdanalysis_mpi_tpu_torch.service.placement` — sticky
   tenant→home-host rendezvous placement, the fleet controller's table.
+- :mod:`~mdanalysis_mpi_tpu_torch.service.fleet` — the controller tier
+  over N host worker processes (:class:`FleetController`,
+  :class:`FleetJob`): placement, host-loss migration, epoch-fenced
+  journal, sharded and ensemble jobs
+  (:mod:`~mdanalysis_mpi_tpu_torch.service.ensemble`).
 - :mod:`~mdanalysis_mpi_tpu_torch.service.canary` — the synthetic
   canary probing the full serving path; :mod:`~mdanalysis_mpi_tpu_torch.
   service.statusd` — the loopback status endpoint; :mod:`~mdanalysis_
@@ -54,7 +59,8 @@ requests instead of re-reading per request.
 The port runs a served job on the card unless the job names the CPU;
 on a CUDA device no breaker route or memory-guard shed moves a job to
 the serial backend (see :mod:`~mdanalysis_mpi_tpu_torch.service.
-scheduler`).
+scheduler`).  A fleet's hosts serve on its controller's device,
+``cuda`` unless given.
 """
 
 from mdanalysis_mpi_tpu_torch.service.jobs import (
@@ -62,7 +68,8 @@ from mdanalysis_mpi_tpu_torch.service.jobs import (
     JobDeadlineExpired, JobHandle, JobQuarantinedError,
     JobRuntimeExceeded, JobShedError, JobState, SchedulerShutdownError,
 )
-from mdanalysis_mpi_tpu_torch.service.journal import JobJournal
+from mdanalysis_mpi_tpu_torch.service.fleet import FleetController, FleetJob
+from mdanalysis_mpi_tpu_torch.service.journal import JobJournal, replay_fleet
 from mdanalysis_mpi_tpu_torch.service.placement import PlacementTable
 from mdanalysis_mpi_tpu_torch.service.qos import QOS_CLASSES, QosPolicy
 from mdanalysis_mpi_tpu_torch.service.scheduler import Scheduler
@@ -70,15 +77,12 @@ from mdanalysis_mpi_tpu_torch.service.telemetry import (
     FleetTelemetry, ServiceTelemetry,
 )
 
-# The JAX package's service exports, but for FleetController,
-# FleetJob and replay_fleet: the fleet tier (service/fleet.py and the
-# journal's fleet replay as a public name) is not ported yet (ROADMAP
-# A10, the fleet slice).
 __all__ = [
     "AdmissionRejectedError", "AnalysisJob", "BackendUnavailableError",
-    "FleetTelemetry", "JobDeadlineExpired", "JobHandle",
-    "JobJournal", "JobQuarantinedError", "JobRuntimeExceeded",
-    "JobShedError", "JobState", "PlacementTable", "QOS_CLASSES",
-    "QosPolicy", "Scheduler", "SchedulerShutdownError",
-    "ServiceTelemetry",
+    "FleetController", "FleetJob", "FleetTelemetry",
+    "JobDeadlineExpired", "JobHandle", "JobJournal",
+    "JobQuarantinedError", "JobRuntimeExceeded", "JobShedError",
+    "JobState", "PlacementTable", "QOS_CLASSES", "QosPolicy",
+    "Scheduler", "SchedulerShutdownError", "ServiceTelemetry",
+    "replay_fleet",
 ]

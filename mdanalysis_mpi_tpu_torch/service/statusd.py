@@ -140,14 +140,7 @@ def _resolve_target(target: str) -> tuple[str, int]:
     ``controller.addr`` (whose ``status_port`` the controller
     published beside its command address)."""
     if os.path.isdir(target):
-        try:
-            from mdanalysis_mpi_tpu_torch.service import fleet as _fleet
-        except ImportError as exc:
-            raise NotImplementedError(
-                f"{target!r} is a fleet workdir: reading its "
-                "controller.addr needs service/fleet.py, which the "
-                "port does not have yet (ROADMAP A10, the fleet "
-                "slice); pass host:port or a bare port") from exc
+        from mdanalysis_mpi_tpu_torch.service import fleet as _fleet
 
         info = _fleet._read_addr_file(target)
         if info is None:

@@ -15,9 +15,11 @@ JAX package's CLI defaults to ``serial``), but for the serial-only
 store's command; ``batch`` runs a JSON job file through the serving
 scheduler (``service/cli.py``), ``status`` and ``usage`` fetch a
 running scheduler's endpoint, and ``perf`` is the perf-regression
-sentinel (``obs/baseline.py``).  ``fleet`` and ``fleet-host`` (the
-fleet tier, ROADMAP A10) and ``lint`` (ROADMAP A11) are not ported yet
-and raise ``NotImplementedError``.
+sentinel (``obs/baseline.py``).  ``fleet`` serves a job file across N
+host processes (``service/fleet.py``; ``fleet-host`` is one such host,
+spawned by the controller), each on the card unless ``--device`` says
+otherwise.  ``lint`` (ROADMAP A11) is not ported yet and raises
+``NotImplementedError``.
 
 Output (Q7 — the reference computes the RMSF then drops it,
 RMSF.py:146-147): results are written as ``.npz`` when ``--output`` is
@@ -173,8 +175,6 @@ def run_config(cfg: AnalysisConfig, universe=None):
 
 #: subcommands of the JAX package's CLI whose modules the port lacks yet
 _NOT_PORTED = {
-    "fleet": "the fleet tier, ROADMAP A10",
-    "fleet-host": "the fleet tier, ROADMAP A10",
     "lint": "the lint tooling, ROADMAP A11",
 }
 
@@ -262,6 +262,18 @@ def main(argv=None) -> int:
         from mdanalysis_mpi_tpu_torch.service.cli import batch_main
 
         return batch_main(args[1:])
+    if args and args[0] == "fleet":
+        # controller tier: a job file across N host worker processes
+        # (sticky placement, host-loss migration, epoch fencing)
+        from mdanalysis_mpi_tpu_torch.service.fleet import fleet_main
+
+        return fleet_main(args[1:])
+    if args and args[0] == "fleet-host":
+        # internal: one fleet host worker (spawned by
+        # FleetController.spawn_host; not an operator surface)
+        from mdanalysis_mpi_tpu_torch.service.fleet import host_main
+
+        return host_main(args[1:])
     if args and args[0] == "status":
         # one-shot fetch of /status from a running scheduler endpoint:
         # stdlib sockets only

@@ -1,7 +1,10 @@
 """The port's twin of ``tests/test_alerts.py``: the same cases, translated to
 the port (``backend="torch"`` with ``device="cpu"`` where the JAX test
-runs ``backend="jax"``); the fleet controller's cases wait for the fleet
-tier.
+runs ``backend="jax"``; every fleet controller is built with
+``device="cpu"``).  The fleet controller's burn-rate case evaluates the
+rule under test alone on an injected clock, as the scheduler's twin
+does: the seed catalog's other rules read process-wide counters that
+earlier tests in the same process may have moved.
 
 Alert rules engine (obs/alerts.py, docs/OBSERVABILITY.md
 "Alerting & profiling"): threshold/rate/burn-rate semantics with an
@@ -475,3 +478,113 @@ def test_supervisor_tick_evaluates_rules_without_manual_driving():
         sched.drain(timeout=60)
         sched.shutdown()
 
+
+
+# ---------------------------------------------------------------------------
+# fleet controller: rules over the FEDERATED snapshot
+# ---------------------------------------------------------------------------
+
+def test_fleet_controller_alerts_over_federated_snapshot(tmp_path):
+    """A host's shipped attainment gauge trips the burn-rate rule at
+    the CONTROLLER (federated snapshot), journaled in the fleet
+    journal, visible through the real /status endpoint, one black box
+    in the workdir; resolves when the host ships recovery."""
+    from mdanalysis_mpi_tpu_torch.service.fleet import FleetController
+    from mdanalysis_mpi_tpu_torch.service.statusd import fetch_status
+
+    clock_t = [5000.0]
+    ctrl = FleetController(str(tmp_path), clock=lambda: clock_t[0],
+                           tick_s=60.0,       # supervisor stays asleep
+                           alerts=[dict(r) for r in SEED_RULES
+                                   if r["name"] == "slo_burn_rate"],
+                           device="cpu")
+    try:
+        def ship(att):
+            ctrl._ingest_obs("h1", {"metrics": {
+                "mdtpu_slo_attainment": {
+                    "type": "gauge",
+                    "values": {'class="interactive"': att}}}})
+
+        ship(0.0)
+        fired = []
+        for _ in range(8):
+            clock_t[0] += 30.0
+            fired += ctrl._alert_tick(force=True)
+        fire = [tr for tr in fired if tr["state"] == "firing"]
+        assert len(fire) == 1
+        assert fire[0]["rule"] == "slo_burn_rate"
+        assert 'class="interactive"' in fire[0]["series"]
+        assert 'host="h1"' in fire[0]["series"]
+        host, port = ctrl._statusd.address
+        doc = fetch_status(f"{host}:{port}")
+        assert [a["rule"] for a in doc["alerts"]["firing"]] == \
+            ["slo_burn_rate"]
+        dumps = [p for p in os.listdir(tmp_path)
+                 if p.startswith("flight_alert_")]
+        assert len(dumps) == 1
+        ship(1.0)
+        resolved = []
+        for _ in range(20):
+            clock_t[0] += 30.0
+            resolved += ctrl._alert_tick(force=True)
+        assert [tr["state"] for tr in resolved] == ["resolved"]
+        assert ctrl.status()["alerts"]["firing"] == []
+    finally:
+        ctrl.shutdown()
+    with open(os.path.join(tmp_path, "fleet_journal.jsonl"),
+              errors="replace") as f:
+        text = f.read()
+    assert '"alert"' in text
+    assert '"slo_burn_rate"' in text
+    assert '"firing"' in text and '"resolved"' in text
+
+
+def test_lost_host_gauges_pruned_counters_kept(tmp_path):
+    from mdanalysis_mpi_tpu_torch.service.fleet import FleetController
+
+    ctrl = FleetController(str(tmp_path), clock=lambda: 0.0,
+                           tick_s=60.0, device="cpu")
+    try:
+        ctrl._ingest_obs("h1", {"metrics": {
+            "mdtpu_slo_attainment": {
+                "type": "gauge",
+                "values": {'class="interactive"': 0.1}},
+            "mdtpu_jobs_completed_total": {
+                "type": "counter", "values": {"": 7}}}})
+        snap = ctrl.fleet_snapshot()
+        assert snap["mdtpu_slo_attainment"]["values"][
+            'class="interactive",host="h1"'] == 0.1
+        base = snap["mdtpu_jobs_completed_total"]["values"][""]
+        ctrl._prune_host_gauges("h1")
+        snap = ctrl.fleet_snapshot()
+        assert 'class="interactive",host="h1"' not in \
+            snap["mdtpu_slo_attainment"]["values"]
+        assert snap["mdtpu_jobs_completed_total"]["values"][""] == base
+        assert ctrl.host_metrics()["h1"][
+            "mdtpu_jobs_completed_total"]["values"][""] == 7
+    finally:
+        ctrl.shutdown()
+
+
+def test_controller_backlog_feeds_queue_saturated(tmp_path):
+    from mdanalysis_mpi_tpu_torch.service.fleet import FleetController
+
+    clock_t = [0.0]
+    ctrl = FleetController(
+        str(tmp_path), clock=lambda: clock_t[0], tick_s=60.0,
+        alerts=[{"name": "fleet_backlog", "kind": "threshold",
+                 "metric": "mdtpu_queue_depth", "op": ">=",
+                 "threshold": 64, "for_ticks": 2}], device="cpu")
+    try:
+        with ctrl._lock:
+            ctrl._pending.extend(f"fp{i}" for i in range(100))
+        fired = []
+        for _ in range(3):
+            clock_t[0] += 1.0
+            fired += ctrl._alert_tick(force=True)
+        assert [(f["rule"], f["state"]) for f in fired] == [
+            ("fleet_backlog", "firing")]
+    finally:
+        with ctrl._lock:
+            ctrl._pending.clear()
+        ctrl.shutdown()

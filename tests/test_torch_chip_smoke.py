@@ -24,7 +24,8 @@ def test_a_selection_always_adds_device_and_build():
 @pytest.mark.parametrize("arg, missing", [("6", 4), ("8,13", 4),
                                           ("5", 3), ("3,10", 4),
                                           ("14", 4), ("3,8,14", 4),
-                                          ("15", 4), ("3,5,15", 4)])
+                                          ("15", 4), ("3,5,15", 4),
+                                          ("16", 4), ("3,5,15,16", 4)])
 def test_a_selection_without_a_needed_phase_is_refused(arg, missing):
     with pytest.raises(ValueError, match=f"select phase {missing} too"):
         chip_smoke.select_phases(["--phases", arg])
@@ -90,3 +91,32 @@ def test_phase_15_runs_after_5_and_counts_on_both_paths(capsys):
                                              part) is None
     out = capsys.readouterr().out
     assert "[4, 8, 14, 9, 10]" in out and "[5, 10]" in out
+
+
+def test_phase_16_runs_after_15_and_counts_its_hosts_fused_launches(capsys):
+    """The fleet phase runs right after the serving phase, on phase 4's
+    system and the water box; its fleet hosts' fused launches (their
+    federated counter) join the fused kernel's main-path count, and no
+    counter brings their pair-histogram launches across processes."""
+    order = chip_smoke.PHASE_ORDER
+    assert order.index(16) == order.index(15) + 1
+    assert order.index(16) < order.index(7) and order.index(16) < \
+        order.index(11)
+    assert chip_smoke.NEEDS[16] == 4 and 16 in chip_smoke.WATER_PHASES
+    assert 16 in chip_smoke.FUSED_PHASES
+    assert 16 not in chip_smoke.PH_PHASES
+    assert chip_smoke.select_phases(["--phases", "3,4,16"]) == {
+        1, 2, 3, 4, 16}
+    assert chip_smoke.select_phases(["--phases", "3,4,5,16"]) == {
+        1, 2, 3, 4, 5, 16}
+    # a run without phase 16 prints a null fused count, not a partial one
+    part = chip_smoke.select_phases(["--phases", "3,4,5,8,9,10,14,15"])
+    assert chip_smoke.main_path_launches(
+        "fused", 40, chip_smoke.FUSED_PHASES, part) is None
+    assert chip_smoke.main_path_launches(
+        "pair_histogram", 12, chip_smoke.PH_PHASES, part) == 12
+    out = capsys.readouterr().out
+    assert "[4, 8, 14, 15, 9, 10]" in out
+    # the CPU rehearsal's switches exist and default to the card
+    assert chip_smoke.FLEET_DEVICE == "cuda"
+    assert chip_smoke.FLEET_CLI_ARGS == ()

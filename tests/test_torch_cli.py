@@ -260,19 +260,19 @@ class TestMainInProcess:
         with pytest.raises(SystemExit):
             main(["rgyr", psf, dcd, "--backend", "jax"])
 
-    @pytest.mark.parametrize("sub,label", [
-        ("fleet", "A10"), ("fleet-host", "A10"), ("lint", "A11")])
+    @pytest.mark.parametrize("sub,label", [("lint", "A11")])
     def test_subcommands_not_ported_yet(self, sub, label):
         with pytest.raises(NotImplementedError, match=label):
             main([sub, "anything"])
 
-    @pytest.mark.parametrize("sub", ["batch", "status", "usage", "perf"])
+    @pytest.mark.parametrize("sub", ["batch", "status", "usage", "perf",
+                                     "fleet", "fleet-host"])
     def test_serving_subcommands_dispatch(self, sub, capsys):
-        """The serving and observability subcommands reach the port's
-        own entry points (their parsers answer ``--help``)."""
+        """The serving, fleet and observability subcommands reach the
+        port's own entry points (their parsers answer ``--help``)."""
         from mdanalysis_mpi_tpu_torch.utils.config import _NOT_PORTED
 
-        assert sorted(_NOT_PORTED) == ["fleet", "fleet-host", "lint"]
+        assert sorted(_NOT_PORTED) == ["lint"]
         with pytest.raises(SystemExit) as exc:
             main([sub, "--help"])
         assert exc.value.code == 0

@@ -36,7 +36,10 @@ on the card and its mesh against serial; and the fused kernel fed from
 a TRR and an AMBER NetCDF (slice 12's readers), equal to a MemoryReader
 of the same frames; and the serving tier on the card: both kernels
 launching inside a scheduler's worker, an open breaker refusing a job
-rather than finishing it on serial, and the mesh's warmup and stage.
+rather than finishing it on serial, and the mesh's warmup and stage;
+and the fleet tier on the card: the federated fused-blocks counter as a
+launch count, and a one-host fleet serving a job bit-equal to its solo
+run.
 """
 
 import numpy as np
@@ -1303,3 +1306,77 @@ def test_cuda_mesh_warmup_builds_and_stage_fills_the_cache():
     again = AlignedRMSF(u2, select="name CA", engine="fused").run(
         backend=own)
     np.testing.assert_array_equal(got.results.rmsf, again.results.rmsf)
+
+
+def _fused_blocks():
+    from mdanalysis_mpi_tpu_torch import obs
+
+    return sum(obs.METRICS.snapshot().get(
+        "mdtpu_fused_blocks_total", {"values": {}})["values"].values())
+
+
+@pytest.mark.cuda
+def test_cuda_fused_blocks_counter_is_the_launch_count():
+    """An int16 fused AlignedRMSF run raises ``mdtpu_fused_blocks_total``
+    (the counter a fleet host ships on its heartbeats) by exactly the
+    rise of ``planar_sums.launches``: the federated counter counts the
+    hosts' kernel launches."""
+    from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
+
+    _card()
+    u = _serve_universe()
+    torch.cuda.synchronize()
+    n0, b0 = fp.planar_sums.launches, _fused_blocks()
+    AlignedRMSF(u, select="name CA", engine="fused").run(
+        backend="torch", batch_size=16, transfer_dtype="int16")
+    torch.cuda.synchronize()
+    launched = fp.planar_sums.launches - n0
+    assert launched == 8                       # 4 blocks x 2 passes
+    assert _fused_blocks() - b0 == launched
+
+
+@pytest.mark.cuda
+def test_cuda_one_host_fleet_serves_bit_equal_to_solo(tmp_path):
+    """A one-host port fleet on the card (the default device) serves a
+    fused int16 AlignedRMSF from a store; the served RMSF equals the
+    solo run's on the same store bit for bit, and the host's federated
+    fused blocks show the kernel ran in the host process."""
+    import time
+
+    from mdanalysis_mpi_tpu_torch import Universe
+    from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
+    from mdanalysis_mpi_tpu_torch.io.psf import write_psf
+    from mdanalysis_mpi_tpu_torch.io.store import ingest
+    from mdanalysis_mpi_tpu_torch.service.fleet import (DONE,
+                                                        FleetController)
+
+    _card()
+    u = _serve_universe()
+    psf, store = str(tmp_path / "p.psf"), str(tmp_path / "p.store")
+    write_psf(psf, u.topology)
+    ingest(u.trajectory, store, chunk_frames=16, quant="int16")
+    spec = {"analysis": "aligned-rmsf", "topology": psf,
+            "trajectory": store, "select": "name CA", "engine": "fused",
+            "transfer_dtype": "int16", "batch_size": 16, "tenant": "a"}
+    with FleetController(str(tmp_path / "fleet"), host_ttl_s=10.0,
+                         status=False) as ctrl:
+        assert ctrl.device == "cuda"
+        ctrl.spawn_host(hb_interval_s=0.1, cache_mb=256)
+        assert ctrl.wait_hosts(1, timeout=120)
+        job = ctrl.submit(spec)
+        assert ctrl.drain(timeout=300)
+        assert job.state == DONE, job.error
+        deadline = time.monotonic() + 20
+        blocks = 0
+        while time.monotonic() < deadline and blocks < 8:
+            blocks = sum(
+                sum(m.get("mdtpu_fused_blocks_total",
+                          {"values": {}})["values"].values())
+                for m in ctrl.host_metrics().values())
+            time.sleep(0.05)
+    assert blocks == 8
+    served = job.result_arrays()["rmsf"]
+    solo = AlignedRMSF(Universe(psf, store), select="name CA",
+                       engine="fused").run(backend="torch", batch_size=16,
+                                           transfer_dtype="int16")
+    np.testing.assert_array_equal(served, solo.results.rmsf)

@@ -8,6 +8,7 @@ the port itself.
 """
 
 import ast
+import json
 import os
 import shutil
 import subprocess
@@ -234,7 +235,9 @@ if not torch.cuda.is_available():
                  lambda: RMSF(ca).run_streaming(),
                  lambda: service.AnalysisJob(RMSF(ca)).analysis.run(
                      backend=service.AnalysisJob(RMSF(ca)).backend),
-                 lambda: dryrun_multichip(2)):
+                 lambda: dryrun_multichip(2),
+                 lambda: service.FleetController(
+                     os.path.join(tmp, "fleet"), status=False)):
         try:
             call()
         except RuntimeError as exc:
@@ -279,6 +282,34 @@ def test_port_runs_without_jax_in_a_fresh_process():
                        timeout=240)
     assert p.returncode == 0, p.stdout + p.stderr
     assert "ISOLATED" in p.stdout
+
+
+_FLEET = r"""
+import json, sys
+from mdanalysis_mpi_tpu_torch.service import fleet
+rc = fleet.fleet_main(["--smoke", "--device", "cpu"])
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "mdanalysis_mpi_tpu")
+             or m.startswith(("jax.", "jaxlib.", "mdanalysis_mpi_tpu.")))
+print("RC", rc, "BAD", bad)
+"""
+
+
+def test_fleet_smoke_runs_without_jax_in_a_fresh_process():
+    """The fleet's dryrun smoke on the CPU (two port hosts, a ``kill
+    -9``, the QoS, ensemble and streaming phases) passes in a fresh
+    process that imports nothing of JAX; its hosts are port processes
+    by construction (``python -m mdanalysis_mpi_tpu_torch
+    fleet-host``)."""
+    env = _env()
+    env["OMP_NUM_THREADS"] = "1"
+    p = subprocess.run([sys.executable, "-c", _FLEET], cwd=REPO,
+                       env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert p.returncode == 0, p.stdout + p.stderr
+    assert "RC 0 BAD []" in p.stdout, p.stdout + p.stderr[-3000:]
+    record = json.loads(p.stdout.splitlines()[0])
+    assert record["ok"] and record["exactly_once"]
 
 
 _SMOKE_NO_GPU = r"""

@@ -1,7 +1,7 @@
 """The port's twin of ``tests/test_qos.py``: the same cases, translated to
 the port (``backend="torch"`` with ``device="cpu"`` where the JAX test
-runs ``backend="jax"``); the fleet controller's cases wait for the fleet
-tier.
+runs ``backend="jax"``); the fleet controller's cases build it with
+``device="cpu"`` and spawn port hosts on the CPU.
 
 QoS classes, weighted-fair admission, load shedding, autoscaling
 (docs/RELIABILITY.md §7 "Overload and elasticity").
@@ -13,6 +13,7 @@ pressure, and jobs that survive a burst produce numbers identical to
 their solo oracle runs.
 """
 
+import os
 import threading
 import time
 
@@ -613,3 +614,119 @@ def test_unknown_qos_policy_or_class_fails_the_job_file(tmp_path,
     assert states["default"] == "failed"
     bad = next(r for r in out["jobs"] if r["state"] == "failed")
     assert "unknown QoS class" in bad["error"]
+
+
+# ---------------------------------------------------------------------------
+# the fleet controller's shed ladder
+# ---------------------------------------------------------------------------
+
+#: the fleet hosts' environment: one intra-op thread each
+FLEET_ENV = {"OMP_NUM_THREADS": "1"}
+
+
+def test_fleet_shed_requires_capacity_not_just_depth(tmp_path):
+    """Depth from ABSENT capacity is not overload: a burst submitted
+    before any host joins must PARK, never permanently shed jobs an
+    about-to-join host could absorb."""
+    from mdanalysis_mpi_tpu_torch.service.fleet import QUEUED as FQUEUED
+    from mdanalysis_mpi_tpu_torch.service.fleet import FleetController
+
+    fixture = {"kind": "protein", "n_residues": 6, "n_frames": 8,
+               "noise": 0.2, "seed": 2}
+    with FleetController(tmp_path, host_ttl_s=5.0, host_slots=1,
+                         qos=QosPolicy(shed_queue_depth=5),
+                         device="cpu") as ctrl:
+        jobs = [ctrl.submit({"analysis": "rmsf", "fixture": fixture,
+                             "tenant": f"t{i}",
+                             "qos": "background"})
+                for i in range(6)]
+        assert ctrl._shed_pending() == []
+        # a few supervisor ticks (50 ms each) find nothing to shed
+        deadline = time.monotonic() + 0.2
+        while time.monotonic() < deadline:
+            assert ctrl.telemetry.jobs_shed == 0
+            time.sleep(0.02)
+        assert all(j.state == FQUEUED for j in jobs)
+        ctrl.spawn_host(hb_interval_s=0.1, env=FLEET_ENV)
+        assert ctrl.drain(timeout=120.0)
+        assert all(j.state == "done" for j in jobs)
+        assert ctrl.telemetry.jobs_shed == 0
+
+
+@pytest.mark.reliability
+def test_overload_burst_during_host_kill_sheds_migrates_exactly_once(
+        tmp_path):
+    """A multi-class burst past the shed depth AND a host ``kill -9``
+    in one wave: only background sheds (typed, journaled, counted),
+    the dead host's work migrates exactly once, every interactive and
+    batch tenant matches the serial oracle, and the autoscaler
+    journals the scale-up the backlog forced."""
+    import numpy as np
+
+    from mdanalysis_mpi_tpu_torch.service import fleet as _fleet
+    from mdanalysis_mpi_tpu_torch.service.fleet import (
+        DONE, SHED, FleetController,
+    )
+    from mdanalysis_mpi_tpu_torch.service.journal import replay_fleet
+
+    fixture = {"kind": "protein", "n_residues": 10, "n_frames": 12,
+               "noise": 0.25, "seed": 5}
+    spawn = {"hb_interval_s": 0.1,
+             "env": {"MDTPU_FLEET_RUN_DELAY": "0.5", **FLEET_ENV}}
+    policy = QosPolicy(shed_queue_depth=3,
+                       shed_classes=("background",))
+    with FleetController(tmp_path, host_ttl_s=2.0, host_slots=1,
+                         qos=policy, autoscale=True, min_hosts=1,
+                         max_hosts=3, scale_up_backlog=2,
+                         scale_down_idle_s=30.0,
+                         scale_cooldown_s=0.2,
+                         autoscale_spawn=spawn, device="cpu") as ctrl:
+        for _ in range(2):
+            ctrl.spawn_host(**spawn)
+        assert ctrl.wait_hosts(2, timeout=60.0)
+        interactive = [ctrl.submit({"analysis": "rmsf",
+                                    "fixture": fixture,
+                                    "tenant": f"i{n}",
+                                    "qos": "interactive"})
+                       for n in range(3)]
+        batch = [ctrl.submit({"analysis": "rmsf",
+                              "fixture": fixture,
+                              "tenant": f"b{n}", "qos": "batch"})
+                 for n in range(3)]
+        background = [ctrl.submit({"analysis": "rmsf",
+                                   "fixture": fixture,
+                                   "tenant": f"g{n}",
+                                   "qos": "background"})
+                      for n in range(4)]
+        victim = sorted(ctrl.placement.hosts())[0]
+        assert ctrl.kill_host(victim)
+        assert ctrl.drain(timeout=120.0), "drain timed out"
+        stats = ctrl.stats()
+        snap = ctrl.telemetry.snapshot()
+    shed = [j for j in background if j.state == SHED]
+    assert shed, "the burst never tripped the shed ladder"
+    assert all("shed by the overload controller" in j.error
+               for j in shed)
+    assert all(j.state == DONE for j in interactive + batch), \
+        [(j.fp, j.state, j.error) for j in interactive + batch
+         if j.state != DONE]
+    assert snap["jobs_shed"] == len(shed)
+    assert stats["hosts_lost"] == 1
+    assert snap["hosts_scaled_up"] >= 1
+    meta = replay_fleet(os.path.join(str(tmp_path),
+                                     _fleet.JOURNAL_NAME))
+    for j in interactive + batch:
+        assert meta["finishes"].get(j.fp) == 1, j.fp
+        assert meta["jobs"][j.fp]["state"] == "done"
+    for j in shed:
+        assert meta["finishes"].get(j.fp) == 1, j.fp
+        assert meta["jobs"][j.fp]["state"] == "shed"
+    assert [r["ev"] for r in meta["scale_events"]].count(
+        "scale_up") >= 1
+    kwargs = {k: v for k, v in fixture.items() if k != "kind"}
+    u = make_protein_universe(**kwargs)
+    oracle = RMSF(u.select_atoms("protein and name CA")).run(
+        backend="serial").results.rmsf
+    for j in interactive + batch:
+        np.testing.assert_allclose(j.result_arrays()["rmsf"],
+                                   oracle, atol=1e-6)

@@ -7,6 +7,13 @@ re-ingest of the same frames write zero new chunk bytes (so its chunks
 are the JAX package's, byte for byte), and a chunk corrupted on the
 wire is rejected with the port's typed error and counted.
 
+The chaos leg (the twin of ``tests/test_store_remote.py``'s fleet
+wave): a two-host port fleet on the CPU reads a remote store URL that
+goes flaky and then hard-down mid-run; every job completes close to the
+local-mirror oracle through the cache and mirror rungs, the counters
+federate through heartbeats, and the tier serves remotely again once
+the faults clear.
+
 Inputs are made with numpy from a seed.  No test leaves 127.0.0.1.
 """
 
@@ -156,3 +163,148 @@ def test_unreachable_remote_is_typed_unavailable():
     with pytest.raises(StoreUnavailableError):
         be.get_bytes("manifest.json")
     assert store_meta("http://127.0.0.1:9/stores/gone") is None
+
+
+# ---------------------------------------------------------------------------
+# the chaos leg: a fleet wave over a flaky remote
+# ---------------------------------------------------------------------------
+
+FIXTURE = {"kind": "protein", "n_residues": 10, "n_frames": 12,
+           "noise": 0.25, "seed": 5}
+
+
+def _fleet_counter(snap: dict, name: str) -> float:
+    return sum(snap.get(name, {"values": {}})["values"].values())
+
+
+def _wait(pred, timeout=30.0, msg="condition"):
+    import time
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return
+        time.sleep(0.1)
+    raise AssertionError(f"timed out waiting for {msg}")
+
+
+def test_fleet_wave_rides_ladder_through_remote_outage(tmp_path):
+    """A two-host port fleet (``device="cpu"``) whose trajectory is a
+    remote store URL; the remote goes hard-down mid-run, per-worker
+    breakers trip, every job completes within 1e-5 of the JAX
+    package's serial run on the mirror via the cache and mirror rungs,
+    the counters federate, and the remote serves again afterwards."""
+    import os
+    import time
+
+    from mdanalysis_mpi_tpu import Universe as JUniverse
+    from mdanalysis_mpi_tpu.analysis import RMSD as JRMSD
+    from mdanalysis_mpi_tpu.analysis import RMSF as JRMSF
+    from mdanalysis_mpi_tpu.io.store import StoreReader as JStoreReader
+
+    from mdanalysis_mpi_tpu_torch.service.fleet import DONE, FleetController
+    from mdanalysis_mpi_tpu_torch.testing import make_protein_universe
+
+    u = make_protein_universe(
+        **{k: v for k, v in FIXTURE.items() if k != "kind"})
+    mirror = str(tmp_path / "mirror")
+    ingest(u.trajectory, mirror, chunk_frames=4, quant="f32",
+           content_addressed=True)
+    with ChunkServer(str(tmp_path / "srv")) as srv:
+        be = HttpStoreBackend(srv.url, store="shared",
+                              cache=ChunkCache())
+        u2 = make_protein_universe(
+            **{k: v for k, v in FIXTURE.items() if k != "kind"})
+        summary = ingest(u2.trajectory, backend=be, chunk_frames=4,
+                         quant="f32")
+        assert summary["n_chunks"] == 3
+        assert summary["content_addressed"] is True
+        for entry in load_manifest(be)["chunks"]:
+            assert os.path.exists(os.path.join(mirror, entry["file"]))
+
+        url = srv.store_url(
+            "shared", mirror=mirror, retries=1, timeout_s=2.0,
+            backoff_s=0.01, breaker_threshold=1,
+            breaker_cooldown_s=0.2)
+        from mdanalysis_mpi_tpu.testing import (
+            make_protein_universe as jmake,
+        )
+
+        ju = jmake(**{k: v for k, v in FIXTURE.items() if k != "kind"})
+        u_oracle = JUniverse(ju.topology, JStoreReader(mirror))
+        sel = "protein and name CA"
+        rmsf_oracle = JRMSF(u_oracle.select_atoms(sel)).run(
+            backend="serial").results.rmsf
+        rmsd_oracle = JRMSD(u_oracle, select=sel).run(
+            backend="serial").results.rmsd
+
+        with FleetController(tmp_path, host_ttl_s=5.0,
+                             device="cpu") as ctrl:
+            for _ in range(2):
+                ctrl.spawn_host(hb_interval_s=0.1,
+                                env={"OMP_NUM_THREADS": "1"})
+            assert ctrl.wait_hosts(2, timeout=60.0)
+
+            def _wave(tag):
+                jobs = [ctrl.submit({
+                    "analysis": "rmsf", "fixture": FIXTURE,
+                    "trajectory": url,
+                    "tenant": f"{tag}{i % 3}"}) for i in range(4)]
+                sharded = ctrl.submit({
+                    "analysis": "rmsd", "fixture": FIXTURE,
+                    "trajectory": url, "tenant": f"{tag}0",
+                    "shards": 2})
+                assert ctrl.drain(timeout=120.0), \
+                    f"{tag} wave drain timed out"
+                assert all(j.state == DONE for j in jobs), \
+                    (tag, [j.error for j in jobs])
+                assert sharded.state == DONE, (tag, sharded.error)
+                for j in jobs:
+                    np.testing.assert_allclose(
+                        j.result_arrays()["rmsf"], rmsf_oracle,
+                        atol=1e-5)
+                np.testing.assert_allclose(
+                    sharded.result_arrays()["rmsd"], rmsd_oracle,
+                    atol=1e-5)
+                return sharded
+
+            sharded = _wave("clean")
+            for child in sharded.children:
+                assert child.spec["start"] % 4 == 0
+            _wait(lambda: _fleet_counter(
+                ctrl.fleet_snapshot(),
+                "mdtpu_store_remote_requests_total") > 0,
+                msg="federated remote request counters")
+
+            srv.inject(
+                ServerFault("reset", times=2),
+                ServerFault("truncate", times=2),
+                ServerFault("corrupt", match="cas-", times=2),
+                ServerFault("http_5xx", times=None),
+                ServerFault("http_5xx", method="HEAD", times=None))
+            snap0 = ctrl.fleet_snapshot()
+            errs0 = _fleet_counter(snap0,
+                                   "mdtpu_store_remote_errors_total")
+            _wave("outage")
+            _wait(lambda: (
+                _fleet_counter(ctrl.fleet_snapshot(),
+                               "mdtpu_store_remote_errors_total")
+                > errs0),
+                msg="federated remote error counters")
+            snap = ctrl.fleet_snapshot()
+
+            def _moved(name):
+                return (_fleet_counter(snap, name)
+                        - _fleet_counter(snap0, name))
+
+            assert _moved("mdtpu_breaker_transitions_total") > 0
+            assert (_moved("mdtpu_store_cache_hits_total")
+                    + _moved("mdtpu_store_mirror_reads_total")) > 0
+            assert _moved("mdtpu_store_unavailable_total") == 0
+
+            srv.clear_faults()
+            # the breaker cooldowns (0.2 s) lapse before the next wave
+            time.sleep(0.3)
+            req0 = srv.requests
+            _wave("recovered")
+            assert srv.requests > req0
