@@ -9,16 +9,16 @@ Run from the root of a checkout, with no arguments::
 That runs every phase.  ``--phases 3,4,13`` runs a comma list of them
 instead (phases 1 and 2 always run; every check within a selected phase
 stays).  A phase that needs what an earlier phase builds either builds
-it itself (the water box of phases 3, 5, 10, 12, 13, 14, 15 and 16; the
-config-1 PSF/DCD of phases 13, 15 and 16) or refuses the selection with
-a message and exit code 2: phases 6, 8, 9, 10, 12, 14, 15 and 16 run on
-phase 4's system and result, so they need 4; phase 5 compares with
-phase 3's main case, so it needs 3.
+it itself (the water box of phases 3, 5, 10, 12, 13, 14, 15, 16 and 17;
+the config-1 PSF/DCD of phases 13, 15 and 16) or refuses the selection
+with a message and exit code 2: phases 6, 8, 9, 10, 12, 14, 15, 16 and
+17 run on phase 4's system and result, so they need 4; phase 5 compares
+with phase 3's main case, so it needs 3.
 The kernel table line needs phase 3's timings: without phase 3 the
 script says so in its place.  A kernel's ``launches`` there is the
 count of its whole main path, so it is null unless every phase that
 launches it on that path ran (the fused kernel: 4, 8, 14, 15, 16, 9,
-10; the pair histogram: 5, 15, 10); the counts of the phases that did
+10, 17; the pair histogram: 5, 15, 10, 17); the counts of the phases that did
 run are printed on a line of their own.  Phase 16's fused launches are
 made in its fleet host processes and read from their federated
 ``mdtpu_fused_blocks_total``; the kernel table labels them
@@ -397,6 +397,32 @@ prints no ok line):
    the drain, each host job's host, latency, migrations and completion
    resends before the ack, the per-host fused blocks, the completion
    JSON's bytes and encode time, and the wave and phase walls.
+17. The port's lint on the card (after phase 13, on phase 4's system
+   and phase 5's water box).  (a) ``python -m mdanalysis_mpi_tpu_torch
+   lint --json`` as a subprocess on the checkout: exit 0, ``clean``,
+   every ``.py`` file of the package linted, ``torch_imported`` and
+   ``jax_imported`` false.  (b) ``lint --graphs --json`` on ``cuda``:
+   exit 0, clean, the three registered programs (``mesh_scan_rmsf`` on
+   two shards of the card, ``torch_group_aligned_rmsf_fused`` and
+   ``torch_group_interrdf_kernel``) with captured group graphs whose
+   groups replayed equal to their eager runs; prints every graph's
+   nodes, kernel nodes, hand-kernel nodes, recorded launches and host
+   bytes.  (c) ``lint/graphcontracts.check_program`` at full width:
+   ``AlignedRMSF(engine='fused')`` of phase 4's heavy atoms, int16,
+   batch 512, one 4-block scan group of the 2,048 frames a pass (each
+   group graph 4 fused launches), and ``InterRDF(ow, ow,
+   engine='pallas')`` of phase 5's box, batch 16, one 4-block group (4
+   pair-histogram launches); each run three times over a fresh
+   ``DeviceBlockCache``.  Both must be clean of
+   MDT110 and MDT111, each graph's hand-kernel nodes equal to its
+   recorded launches, and each captured group's output bit-equal to its
+   eager run.  Then the seeded positive: a group body that copies a 2 MiB
+   pinned host tensor inside its capture must fire MDT111.  The
+   launches of (c), with both counts set to 0 just before it, count on
+   both kernels' main paths; those of (b) are made in its own process
+   at the registered programs' small size, so they are printed on a
+   line of their own and counted nowhere.  Prints each part's wall
+   beside the card.
 
 Phase 3 also holds the pair-histogram kernel (``ops/fused_distances.
 pair_histogram``, ``csrc/pair_histogram.cu``) against
@@ -562,7 +588,8 @@ VACF_RTOL = 1e-3                     # test_vacf.py's elementwise rtol
 VACF_FLOOR = 1e-2                    # lags held to it: |C| >= this x C(0)
 CLI_TOL = 1e-5
 # every phase, in the order they run
-PHASE_ORDER = (1, 2, 3, 4, 8, 14, 5, 15, 16, 6, 9, 10, 12, 13, 7, 11)
+PHASE_ORDER = (1, 2, 3, 4, 8, 14, 5, 15, 16, 6, 9, 10, 12, 13, 17, 7,
+               11)
 
 
 class SmokeFailure(Exception):
@@ -4665,16 +4692,182 @@ def phase_fleet(card, u, uw):
     return launches
 
 
+# ---------------------------------------------------------------- phase 17
+
+LINT_TIMEOUT_S = 300
+
+
+def lint_cli(card, label, args):
+    """``python -m mdanalysis_mpi_tpu_torch lint --json`` (plus ``args``)
+    as a subprocess on the checkout → (its JSON document, wall s).  It
+    must exit 0 with ``clean`` true."""
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "mdanalysis_mpi_tpu_torch", "lint",
+             "--json", *args], cwd=HERE,
+            env=dict(os.environ, PYTHONPATH=HERE),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            timeout=LINT_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"lint {label}: ran over {LINT_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"lint {label}: exit {proc.returncode}\n{proc.stdout[-3000:]}"
+          f"\n{proc.stderr[-3000:]}")
+    doc = json.loads(proc.stdout)
+    check(doc["clean"] is True and doc["n_findings"] == 0,
+          f"lint {label}: findings {doc['findings']}")
+    return doc, wall
+
+
+def graph_line(label, i, g):
+    return (f"lint {label} graph {i}: {g['nodes']} nodes, "
+            f"{g['kernel_nodes']} kernel nodes, hand-kernel nodes "
+            f"{g['hand_kernel_nodes']}, recorded launches {g['launches']}, "
+            f"host bytes {g['host_bytes']}")
+
+
+def full_width_program(card, name, make, exe, n_launch, wrapper):
+    """(c): the capture contracts on one main-path program at full width
+    → its report.  Clean of MDT110 and MDT111, each graph's hand-kernel
+    nodes equal to its recorded launches (``n_launch`` of ``wrapper``),
+    every captured group's output equal to its eager run bit for bit."""
+    from mdanalysis_mpi_tpu_torch.lint import graphcontracts as gc
+
+    t0 = time.perf_counter()
+    findings, rep = gc.check_program(name, make, exe)
+    wall = time.perf_counter() - t0
+    check(findings == [],
+          f"lint (c) {name}: {[f.render() for f in findings]}")
+    check(rep["replay_equal"],
+          f"lint (c) {name}: a replayed group differs from its eager run")
+    check(rep["graphs"], f"lint (c) {name}: no graph captured")
+    for i, g in enumerate(rep["graphs"]):
+        print(graph_line(f"(c) {name}", i, g))
+        check(g["launches"] == {wrapper: n_launch}
+              and g["hand_kernel_nodes"][wrapper] == n_launch,
+              f"lint (c) {name} graph {i}: hand-kernel nodes "
+              f"{g['hand_kernel_nodes']}, launches {g['launches']}, "
+              f"expected {n_launch} of {wrapper}")
+    for leg in rep["passes"]:
+        check(leg["collectives"] == {},
+              f"lint (c) {name}: collectives {leg['collectives']}")
+    print(f"lint (c) {name}: {len(rep['graphs'])} graph(s), groups "
+          f"{[leg['groups'] for leg in rep['passes']]} a run, clean of "
+          f"MDT110/MDT111, every later output of its "
+          f"{rep['groups_compared']} groups bit-equal to the eager one, "
+          f"launches {rep['launches']}; three runs {wall:.2f} s on {card}")
+    return rep
+
+
+def phase_lint(card, u, ow):
+    """Phase 17: the port's lint on the card — (a) the fast passes as a
+    command, torch- and jax-free; (b) ``lint --graphs`` on ``cuda`` (the
+    registered programs' group graphs); (c) the capture contracts on
+    phase 4's main path and phase 5's box at full width, and the seeded
+    MDT111 positive → (c)'s main-path launches (fused, pair
+    histogram)."""
+    import torch
+
+    from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF, InterRDF
+    from mdanalysis_mpi_tpu_torch.lint import graphcontracts as gc
+    from mdanalysis_mpi_tpu_torch.ops import fused_distances as fd
+    from mdanalysis_mpi_tpu_torch.ops import fused_planar as fp
+    from mdanalysis_mpi_tpu_torch.parallel.executors import (
+        DeviceBlockCache, TorchExecutor)
+
+    t_phase = time.perf_counter()
+    pkg = os.path.join(HERE, "mdanalysis_mpi_tpu_torch")
+    n_py = sum(fn.endswith(".py") for _, _, fns in os.walk(pkg)
+               for fn in fns)
+
+    # (a) the fast passes
+    doc, wall = lint_cli(card, "(a)", [])
+    check(doc["torch_imported"] is False and doc["jax_imported"] is False,
+          f"lint (a): torch_imported {doc['torch_imported']}, "
+          f"jax_imported {doc['jax_imported']}")
+    check(doc["files"] == n_py,
+          f"lint (a): {doc['files']} files of the package's {n_py}")
+    print(f"lint (a) fast mode: {doc['files']} files, clean, "
+          f"{doc['n_baselined']} baselined, {doc['n_suppressed']} "
+          f"pragma-suppressed, torch_imported false, jax_imported false; "
+          f"wall {wall:.2f} s on {card}")
+
+    # (b) the capture tier from the command line, on cuda
+    doc, wall = lint_cli(card, "(b)", ["--graphs"])
+    names = [p["name"] for p in doc["programs"]]
+    check(names == ["mesh_scan_rmsf", "torch_group_aligned_rmsf_fused",
+                    "torch_group_interrdf_kernel"],
+          f"lint (b): programs {names}")
+    b_launches = [0, 0]
+    for p in doc["programs"]:
+        check(p["device"].startswith("cuda") and p["graphs"]
+              and p["replay_equal"],
+              f"lint (b) {p['name']}: device {p['device']}, "
+              f"{len(p['graphs'])} graphs, replay_equal {p['replay_equal']}")
+        for i, g in enumerate(p["graphs"]):
+            print(graph_line(f"(b) {p['name']}", i, g))
+        b_launches[0] += p["launches"]["planar_sums"]
+        b_launches[1] += p["launches"]["pair_histogram"]
+    print(f"lint (b) --graphs on cuda: {len(names)} programs clean of "
+          f"MDT110/MDT111; wall {wall:.2f} s on {card}")
+    print(f"lint (b) launches in its own process, at the registered "
+          f"programs' small size (not counted on the main path): fused "
+          f"{b_launches[0]}, pair histogram {b_launches[1]}")
+
+    # (c) full width: phase 4's main path (one 4-block scan group a
+    # pass) and phase 5's box (one 4-block group of pair histograms),
+    # the main-path counts read over it alone
+    hints = u.trajectory.__dict__
+    n_blocks = -(-E2E_FRAMES // E2E_BATCH)
+
+    def make_fused():
+        hints.pop("_quant_max_hints", None)
+        return AlignedRMSF(u, select="heavy", engine="fused")
+
+    fp.planar_sums.launches = 0
+    fd.pair_histogram.launches = 0
+    full_width_program(
+        card, "torch_group_aligned_rmsf_fused", make_fused,
+        TorchExecutor(batch_size=E2E_BATCH, device="cuda",
+                      transfer_dtype="int16", scan_k=n_blocks,
+                      block_cache=DeviceBlockCache()),
+        n_blocks, "planar_sums")
+    n_rdf = -(-RDF_FRAMES // RDF_BATCH)
+    full_width_program(
+        card, "torch_group_interrdf_kernel",
+        lambda: InterRDF(ow, ow, engine="pallas"),
+        TorchExecutor(batch_size=RDF_BATCH, device="cuda", scan_k=n_rdf,
+                      block_cache=DeviceBlockCache()),
+        n_rdf, "pair_histogram")
+    c_fused, c_ph = kernel_counts()
+    torch.cuda.empty_cache()
+
+    # the seeded positive: a 2 MiB pinned host copy inside a capture
+    findings, rep = gc.seeded_host_copy("cuda")
+    check([(f.rule, f.detail) for f in findings]
+          == [("MDT111", "graph0:host_bytes")]
+          and rep["host_bytes"] == 2 << 20 and rep["replay_ok"],
+          f"lint seeded positive: {findings}, {rep}")
+    print(f"lint seeded positive: a body copying a {rep['host_bytes']}-byte "
+          f"pinned host tensor inside its capture fired MDT111")
+    print(f"lint phase: {time.perf_counter() - t_phase:.1f} s, main-path "
+          f"launches (c) fused {c_fused}, pair histogram {c_ph} on {card}")
+    return c_fused, c_ph
+
+
 #: phases that run on the water box built once for them
-WATER_PHASES = {3, 5, 10, 12, 13, 14, 15, 16}
+WATER_PHASES = {3, 5, 10, 12, 13, 14, 15, 16, 17}
 #: phases that launch each kernel on its main path (phase 16's fused
 #: launches are its fleet hosts', read from their federated counter;
 #: its hosts' pair-histogram launches have no counter that crosses
 #: processes, so that kernel's count leaves them out)
-FUSED_PHASES = (4, 8, 14, 15, 16, 9, 10)
-PH_PHASES = (5, 15, 10)
+FUSED_PHASES = (4, 8, 14, 15, 16, 9, 10, 17)
+PH_PHASES = (5, 15, 10, 17)
 #: phases that run on what another phase builds → that phase
-NEEDS = {6: 4, 8: 4, 9: 4, 10: 4, 12: 4, 14: 4, 15: 4, 16: 4, 5: 3}
+NEEDS = {6: 4, 8: 4, 9: 4, 10: 4, 12: 4, 14: 4, 15: 4, 16: 4, 17: 4,
+         5: 3}
 NEEDS_WHY = {4: "phase 4's system and its RMSF",
              3: "phase 3's main pair-histogram case"}
 
@@ -4789,6 +4982,10 @@ def main(argv=None):
             phase_analyses(card, u_e2e, u, ow)
         if 13 in phases:
             phase_remaining(card, u, ow)
+        if 17 in phases:
+            lint_fused, lint_ph = phase_lint(card, u_e2e, ow)
+            launches += lint_fused
+            ph_launches += lint_ph
         del u, ow, u_e2e
         if 7 in phases:
             phase_configs(card)

@@ -582,13 +582,20 @@ class _GroupGraph:
     already handed out.  A failed capture raises; nothing falls back to
     eager dispatch."""
 
+    #: keep the captured ``cudaGraph_t`` beside the executable
+    #: (``graph.raw_cuda_graph()``); set only while the capture
+    #: contracts of :mod:`~mdanalysis_mpi_tpu_torch.lint.graphcontracts`
+    #: probe a run, to read its nodes
+    keep_graph = False
+
     def __init__(self, body, params, total, device):
         from mdanalysis_mpi_tpu_torch import _build
 
         t0 = _time.perf_counter()
         self.params = _clone_tree(params)
         self.total = _clone_tree(total)
-        self.graph = torch.cuda.CUDAGraph()
+        self.graph = (torch.cuda.CUDAGraph(keep_graph=True)
+                      if self.keep_graph else torch.cuda.CUDAGraph())
         with torch.cuda.device(device):
             cur = torch.cuda.current_stream(device)
             side = torch.cuda.Stream(device)
@@ -604,6 +611,8 @@ class _GroupGraph:
                         pass        # the capture is invalid either way
                     raise
                 self.graph.capture_end()
+            if self.keep_graph:
+                self.graph.instantiate()
             cur.wait_stream(side)
         # the hand kernels' launches inside the graph, counted at each
         # replay (where they run)

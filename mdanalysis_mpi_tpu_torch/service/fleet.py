@@ -3087,7 +3087,9 @@ def _write_output(job: FleetJob) -> str | None:
     from mdanalysis_mpi_tpu_torch.utils import integrity as _integrity
 
     buf = io.BytesIO()
-    np.savez(buf, **job.result_arrays())
+    # an in-memory buffer: the file itself is written by
+    # atomic_write_bytes below (tmp -> fsync -> rename)
+    np.savez(buf, **job.result_arrays())  # mdtpu-lint: disable=MDT005
     try:
         _integrity.atomic_write_bytes(job.spec["output"], buf.getvalue(),
                                       artifact="job_output")

@@ -18,8 +18,9 @@ running scheduler's endpoint, and ``perf`` is the perf-regression
 sentinel (``obs/baseline.py``).  ``fleet`` serves a job file across N
 host processes (``service/fleet.py``; ``fleet-host`` is one such host,
 spawned by the controller), each on the card unless ``--device`` says
-otherwise.  ``lint`` (ROADMAP A11) is not ported yet and raises
-``NotImplementedError``.
+otherwise.  ``lint`` is the repo's static analysis
+(``lint/cli.py``): its fast passes import neither torch nor jax, and
+``--graphs`` checks the executor's captured group graphs on the card.
 
 Output (Q7 — the reference computes the RMSF then drops it,
 RMSF.py:146-147): results are written as ``.npz`` when ``--output`` is
@@ -173,12 +174,6 @@ def run_config(cfg: AnalysisConfig, universe=None):
                  backend=backend, **kwargs)
 
 
-#: subcommands of the JAX package's CLI whose modules the port lacks yet
-_NOT_PORTED = {
-    "lint": "the lint tooling, ROADMAP A11",
-}
-
-
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="mdanalysis_mpi_tpu_torch",
@@ -298,10 +293,13 @@ def main(argv=None) -> int:
         from mdanalysis_mpi_tpu_torch.io.store.cli import ingest_main
 
         return ingest_main(args[1:])
-    if args and args[0] in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {args[0]!r} subcommand is not ported yet "
-            f"({_NOT_PORTED[args[0]]})")
+    if args and args[0] == "lint":
+        # repo-native static analysis (lint/ subsystem): the fast AST
+        # and schema passes import neither torch nor jax; --graphs
+        # captures the executor's group graphs on the card
+        from mdanalysis_mpi_tpu_torch.lint.cli import lint_main
+
+        return lint_main(args[1:])
     ns = _parser().parse_args(args)
     cfg = AnalysisConfig(
         analysis=ns.analysis, topology=ns.topology,

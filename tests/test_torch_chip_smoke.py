@@ -25,7 +25,8 @@ def test_a_selection_always_adds_device_and_build():
                                           ("5", 3), ("3,10", 4),
                                           ("14", 4), ("3,8,14", 4),
                                           ("15", 4), ("3,5,15", 4),
-                                          ("16", 4), ("3,5,15,16", 4)])
+                                          ("16", 4), ("3,5,15,16", 4),
+                                          ("17", 4), ("3,5,17", 4)])
 def test_a_selection_without_a_needed_phase_is_refused(arg, missing):
     with pytest.raises(ValueError, match=f"select phase {missing} too"):
         chip_smoke.select_phases(["--phases", arg])
@@ -110,13 +111,36 @@ def test_phase_16_runs_after_15_and_counts_its_hosts_fused_launches(capsys):
     assert chip_smoke.select_phases(["--phases", "3,4,5,16"]) == {
         1, 2, 3, 4, 5, 16}
     # a run without phase 16 prints a null fused count, not a partial one
-    part = chip_smoke.select_phases(["--phases", "3,4,5,8,9,10,14,15"])
+    part = chip_smoke.select_phases(["--phases", "3,4,5,8,9,10,14,15,17"])
     assert chip_smoke.main_path_launches(
         "fused", 40, chip_smoke.FUSED_PHASES, part) is None
     assert chip_smoke.main_path_launches(
         "pair_histogram", 12, chip_smoke.PH_PHASES, part) == 12
     out = capsys.readouterr().out
-    assert "[4, 8, 14, 15, 9, 10]" in out
+    assert "[4, 8, 14, 15, 9, 10, 17]" in out
     # the CPU rehearsal's switches exist and default to the card
     assert chip_smoke.FLEET_DEVICE == "cuda"
     assert chip_smoke.FLEET_CLI_ARGS == ()
+
+
+def test_phase_17_runs_after_13_and_counts_on_both_paths(capsys):
+    """The lint phase runs on phase 4's system and the water box before
+    they are dropped; the launches of its capture tier join both
+    kernels' main-path counts."""
+    order = chip_smoke.PHASE_ORDER
+    assert order.index(17) == order.index(13) + 1
+    assert order.index(17) < order.index(7) and order.index(17) < \
+        order.index(11)
+    assert chip_smoke.NEEDS[17] == 4 and 17 in chip_smoke.WATER_PHASES
+    assert 17 in chip_smoke.FUSED_PHASES and 17 in chip_smoke.PH_PHASES
+    assert chip_smoke.select_phases(["--phases", "3,4,17"]) == {
+        1, 2, 3, 4, 17}
+    # a run without phase 17 prints null counts for both kernels
+    part = chip_smoke.select_phases(["--phases",
+                                     "3,4,5,8,9,10,14,15,16"])
+    for name, phases in (("fused", chip_smoke.FUSED_PHASES),
+                         ("pair_histogram", chip_smoke.PH_PHASES)):
+        assert chip_smoke.main_path_launches(name, 40, phases,
+                                             part) is None
+    out = capsys.readouterr().out
+    assert "[4, 8, 14, 15, 16, 9, 10]" in out and "[5, 15, 10]" in out

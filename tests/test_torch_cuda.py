@@ -39,7 +39,12 @@ launching inside a scheduler's worker, an open breaker refusing a job
 rather than finishing it on serial, and the mesh's warmup and stage;
 and the fleet tier on the card: the federated fused-blocks counter as a
 launch count, and a one-host fleet serving a job bit-equal to its solo
-run.
+run; and the lint's capture contracts (``lint/graphcontracts.py``) on
+the captured group graphs of the registered programs: no collective in
+a body, one combine a scan group, no host constants over the budget,
+hand-kernel graph nodes equal to the recorded launches, replays equal
+to the eager groups, and the seeded 2 MiB pinned host copy firing
+MDT111.
 """
 
 import numpy as np
@@ -1380,3 +1385,76 @@ def test_cuda_one_host_fleet_serves_bit_equal_to_solo(tmp_path):
                        engine="fused").run(backend="torch", batch_size=16,
                                            transfer_dtype="int16")
     np.testing.assert_array_equal(served, solo.results.rmsf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,wrapper", [
+    ("mesh_scan_rmsf", None),
+    ("torch_group_aligned_rmsf_fused", "planar_sums"),
+    ("torch_group_interrdf_kernel", "pair_histogram")])
+def test_cuda_capture_contracts_hold_on_the_group_graphs(name, wrapper):
+    """Each registered program, run three times over one cache, leaves
+    group graphs clean of MDT110 and MDT111: every graph's hand-kernel
+    nodes equal the launches its capture recorded (two a graph: groups
+    of two blocks), and the captured groups' outputs equal the eager
+    ones bit for bit."""
+    from mdanalysis_mpi_tpu_torch.lint import graphcontracts as gc
+
+    _card()
+    make, exe, shards, single = gc.registered_programs("cuda")[name]
+    findings, rep = gc.check_program(name, make, exe, shards=shards,
+                                     single_device=single)
+    assert findings == [], [f.render() for f in findings]
+    assert rep["replay_equal"]
+    assert rep["graphs"]
+    for g in rep["graphs"]:
+        assert g["host_bytes"] == 0
+        assert g["hand_kernel_nodes"] == {
+            w: g["launches"].get(w, 0) for w in gc.HAND_KERNELS}
+        if wrapper is not None:
+            assert g["launches"] == {wrapper: 2}
+    if wrapper is None:
+        for p in rep["passes"]:
+            assert p["combines"] == p["groups"] == 4
+
+
+@pytest.mark.cuda
+def test_cuda_seeded_pinned_host_copy_fires_mdt111():
+    """A body that copies a 2 MiB pinned host tensor inside the capture
+    holds 2 MiB of host bytes: MDT111 fires (a contract that never
+    fires proves nothing)."""
+    from mdanalysis_mpi_tpu_torch.lint import graphcontracts as gc
+
+    _card()
+    findings, rep = gc.seeded_host_copy("cuda")
+    assert rep["host_bytes"] == 2 << 20 and rep["replay_ok"]
+    assert [(f.rule, f.detail) for f in findings] == [
+        ("MDT111", "graph0:host_bytes")]
+
+
+@pytest.mark.cuda
+def test_cuda_graph_nodes_of_a_plain_capture():
+    """The driver-API reader on a graph of known content: one
+    host-to-device copy of its exact size, torch's fills as kernels."""
+    from mdanalysis_mpi_tpu_torch.lint import graphcontracts as gc
+
+    dev = _card()
+    x = torch.zeros(1 << 16, device=dev)
+    host = torch.ones(1 << 16).pin_memory()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        g.capture_begin()
+        y = x + host.to(dev, non_blocking=True)
+        z = torch.full((1000,), -1, dtype=torch.int32, device=dev)
+        g.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    g.instantiate()
+    g.replay()
+    torch.cuda.synchronize()
+    nodes = gc.read_graph_nodes(g.raw_cuda_graph())
+    assert bool((y == 1).all()) and bool((z == -1).all())
+    assert [k for k, _, _ in nodes].count("memcpy_htod") == 1
+    assert gc.host_constant_bytes(nodes) == 4 << 16
+    assert [k for k, _, _ in nodes].count("kernel") == 2
