@@ -75,7 +75,8 @@ prints no ok line):
    shape (2,000 waters in a 39.1 Å box, 8 frames, ``nbins=75,
    range=(0, 10)``) the kernel route is within 0.05 of the serial
    float64 oracle's g(r) at every bin.  Prints the wall, frames/s,
-   pairs/s and the kernel's share of the wall.
+   pairs/s and the kernel's share of the wall, and the repeat's split
+   (its run phases and the garbage collector's seconds inside it).
 6. RMSD and AlignTraj on phase 4's system (built once for both phases):
    ``RMSD(u, select='heavy')`` over all 2,048 frames, batch 512, on
    ``backend='torch', device='cuda'``, at float32 and int16 staging, and
@@ -423,6 +424,39 @@ prints no ok line):
    at the registered programs' small size, so they are printed on a
    line of their own and counted nowhere.  Prints each part's wall
    beside the card.
+18. Fuzz (last; needs no other phase).  (a) Both hand kernels at random
+   geometries from a seeded ``numpy.random.Generator`` (the seed is
+   printed) against their plain versions on the card.  The fused kernel:
+   8 forced corners (one frame; each dtype's largest frame group; a
+   shorter last slice; S at the shared-memory limit of each dtype, where
+   two stages remain) and 48 draws of B in [1, 600] frames and 1-70,000
+   atoms padded by ``pad_selection`` (B·S at most the main shape's),
+   int16, int8 or float32, a scalar or per-frame inverse scale, a random
+   frame-mask tail and random holes in the atom mask, each within
+   ``tests/test_torch_cuda.py::_assert_moments_close``'s tolerances
+   (mean 5e-4, M2 5e-3); the distinct ``fused_geometry`` tuples reached
+   are printed, and the phase fails unless they include group 1, each
+   dtype's largest group, stages 2 and ``MAX_STAGES`` and a shorter
+   last slice.  The pair histogram: 32 draws of B in [1, 8], N and M in
+   [1, 5,000] (every fourth case ``a is b``, mostly with
+   ``exclude_self``), orthorhombic boxes with lengths of 8-60 Å, an axis
+   of length 0 (no PBC on it) a fifth of the time and no box a tenth,
+   half the cases with coordinates shifted whole box lengths outside
+   the box, 1-512 bins from r0 = 0 or up to 6 Å, uniform or non-uniform
+   edges: the counts EQUAL to the plain version's.  Every third case of
+   each kernel is captured in a CUDA graph and replayed twice, each
+   replay equal to the eager run.  (b) The draws of
+   ``tests/test_torch_backend_fuzz.py`` on the card, three seeds on
+   ``'torch'`` and on a two-shard mesh of the card: AlignedRMSF, RMSD
+   and RMSF (float32 within 2e-4 Å, int16 1e-3 Å of serial), fused int16
+   AlignedRMSF (1e-3 Å), an ``AnalysisCollection`` of two RMSFs (2e-4
+   Å), fused int8 and delta AlignedRMSF (within 5e-4 / 5e-3 Å of the
+   plain version's run on the same wire on the CPU and within the int8
+   resolution, the coordinate range / 120, of serial), and
+   ``InterRDF(engine='auto')`` of a small water box (the kernel route,
+   max |d g(r)| < 0.05 of serial, phase 5's bound).  Its launches of
+   both kernels are printed on a line of their own (above 0) and count
+   on no main path.  Prints the phase's wall.
 
 Phase 3 also holds the pair-histogram kernel (``ops/fused_distances.
 pair_histogram``, ``csrc/pair_histogram.cu``) against
@@ -589,7 +623,7 @@ VACF_FLOOR = 1e-2                    # lags held to it: |C| >= this x C(0)
 CLI_TOL = 1e-5
 # every phase, in the order they run
 PHASE_ORDER = (1, 2, 3, 4, 8, 14, 5, 15, 16, 6, 9, 10, 12, 13, 17, 7,
-               11)
+               11, 18)
 
 
 class SmokeFailure(Exception):
@@ -1292,6 +1326,28 @@ def phase_end_to_end(card):
 
 # ---------------------------------------------------------------- phase 5
 
+def rdf_repeat(main_path):
+    """Phase 5's repeat: ``main_path()`` with the time the garbage
+    collector takes in it → ``main_path()``'s tuple + (gc s,)."""
+    import gc
+
+    gc_s = [0.0]
+    t_gc = {}
+
+    def timing(phase, info):
+        if phase == "start":
+            t_gc["t"] = time.perf_counter()
+        elif "t" in t_gc:
+            gc_s[0] += time.perf_counter() - t_gc.pop("t")
+
+    gc.callbacks.append(timing)
+    try:
+        res = main_path()
+    finally:
+        gc.callbacks.remove(timing)
+    return res + (gc_s[0],)
+
+
 def phase_rdf(card, u, ow, main_row):
     """Phase 5: InterRDF of config 4 at full width → its launches."""
     import torch
@@ -1328,7 +1384,7 @@ def phase_rdf(card, u, ow, main_row):
     check(count.shape == (75,) and rdf.shape == (75,)
           and np.isfinite(rdf).all() and count.sum() > 0,
           f"InterRDF result shape {count.shape} / non-finite values")
-    again, wall2, launches2 = main_path()
+    again, wall2, launches2, gc_s = rdf_repeat(main_path)
     check(launches2 == n_blocks, f"repeat launched {launches2} times")
     check(np.array_equal(count, again.results.count)
           and np.array_equal(rdf, again.results.rdf),
@@ -1343,6 +1399,11 @@ def phase_rdf(card, u, ow, main_row):
           f"the repeat's wall {100 * share:.1f}% ({n_blocks} x "
           f"{main_row['ms']:.3f} ms) on {card}; g(r) peak "
           f"{rdf.max():.3f} at r = {first.results.bins[rdf.argmax()]:.2f} A")
+    split = again.results.observability["phases"]
+    print("rdf repeat split: " + ", ".join(
+        f"{k} {v['seconds']:.4f} s ({v['calls']})"
+        for k, v in sorted(split.items())) + f"; garbage collection "
+        f"{gc_s:.4f} s")
 
     t0 = time.perf_counter()
     xla = InterRDF(ow, ow, engine="xla").run(**run_kw)
@@ -4857,6 +4918,379 @@ def phase_lint(card, u, ow):
     return c_fused, c_ph
 
 
+# ---------------------------------------------------------------- phase 18
+
+FUZZ_SEED = 18
+FUZZ_FUSED_CASES = 48               # drawn cases (the forced ones add 8)
+FUZZ_PH_CASES = 32
+FUZZ_GRAPH_EVERY = 3                # every third case also as a graph
+FUZZ_MAX_ELEMS = 512 * 50176        # B·S of a drawn case: the main shape
+FUZZ_RUN_SEEDS = 3                  # (b): seeds on each backend
+FUZZ_WATERS = (216, 1000)           # (b): InterRDF's box, waters
+FUZZ_DEVICE = "cuda"
+FUZZ_MESH = ["cuda:0"] * 2
+FUZZ_PLAIN_DEVICE = "cpu"           # (b): the plain versions' device
+FUZZ_DTYPES = {"int16": 2, "int8": 1, "float32": 4}
+
+
+def sm_count(device):
+    import torch
+
+    return torch.cuda.get_device_properties(
+        torch.device(device)).multi_processor_count
+
+
+def replay(fn):
+    """``fn()`` captured into a CUDA graph (its kernel launches recorded,
+    :func:`_build.recording`) and replayed twice → the two replays'
+    outputs; each replay counts the recorded launches, as the
+    executor's group graphs do."""
+    import torch
+
+    from mdanalysis_mpi_tpu_torch import _build
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                  # warm the allocator
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with _build.recording() as launched, torch.cuda.graph(graph):
+        out = fn()
+    outs = []
+    for _ in range(2):
+        graph.replay()
+        for wrapper in launched:
+            _build.count_launch(wrapper)
+        torch.cuda.synchronize()
+        outs.append(out.clone())
+    del graph
+    return outs
+
+
+def fuzz_planes(rng, B, n_real, dtype, per_frame, dev):
+    """A fused-kernel case like phase 3's (a reference of coordinate
+    scale 20 Å, each frame a rigid motion of it plus 0.3 Å noise), with
+    a random frame-mask tail and random holes in the atom mask → (the
+    wrapper's arguments, T)."""
+    import torch
+
+    from mdanalysis_mpi_tpu_torch.ops import fused_rmsf as fr
+
+    idx_p, nr = fr.pad_selection(np.arange(n_real))
+    S = len(idx_p)
+    ref = rng.normal(scale=20.0, size=(n_real, 3)).astype(np.float32)
+    masses = rng.uniform(1, 16, size=n_real)
+    com = (ref * (masses / masses.sum())[:, None]).sum(0)
+    rots = torch.from_numpy(_rotations(rng, B).astype(np.float32)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    x = torch.einsum("ni,bji->bnj", torch.from_numpy(ref).to(dev), rots)
+    x += 10.0 * torch.randn((B, 1, 3), generator=g, device=dev)
+    x += 0.3 * torch.randn(x.shape, generator=g, device=dev)
+    planes = torch.cat([x, x[:, :1].expand(B, S - n_real, 3)], dim=1)
+    planes = planes.permute(2, 0, 1).contiguous()          # (3, B, S)
+    if dtype == "float32":
+        qp = planes
+        inv = (torch.ones(B, device=dev) if per_frame else 1.0)
+    else:
+        top = 32767.0 if dtype == "int16" else 127.0
+        amax = (planes.abs().amax(dim=(0, 2)) if per_frame
+                else planes.abs().max().reshape(1).expand(B))
+        inv_col = (amax / top).to(torch.float32)
+        qp = torch.round(planes / inv_col[None, :, None]).to(
+            getattr(torch, dtype)).contiguous()
+        inv = inv_col.contiguous() if per_frame else float(inv_col[0])
+    wN, refc_p, _, amask, sref = (
+        p.to(dev) for p in fr.build_params(ref - com, com, masses, nr, S))
+    if rng.random() < 0.5:
+        holes = torch.from_numpy(rng.random(nr) < rng.uniform(0.01, 0.3))
+        amask[:nr][holes.to(dev)] = 0.0
+    valid = B if rng.random() < 0.4 else int(rng.integers(1, B + 1))
+    fmask = torch.zeros(B, device=dev)
+    fmask[:valid] = 1.0
+    return (qp, inv, wN, refc_p, amask, sref, fmask), float(valid)
+
+
+def fuzz_fused_draws(rng, sms):
+    """(B, n_real, dtype, per_frame) of phase 18's fused cases: the
+    forced corners (group 1, each dtype's largest group, a shorter last
+    slice, S at the shared-memory limit: two stages), then the draws."""
+    from mdanalysis_mpi_tpu_torch.ops import fused_planar as fp
+
+    cases = [(1, 300, "int16", False), (40, 900, "int8", True),
+             (30, 2000, "int16", False), (12, 700, "float32", True),
+             (3, 70000, "int16", False)]
+    for dtype, itemsize in FUZZ_DTYPES.items():
+        cases.append((int(rng.integers(1, 4)),
+                      fp.fused_max_atoms(itemsize, sms)
+                      - int(rng.integers(0, 255)), dtype, False))
+    while len(cases) < FUZZ_FUSED_CASES + 8:
+        B = int(np.exp(rng.uniform(0, np.log(600))))
+        n_real = int(np.exp(rng.uniform(0, np.log(70000))))
+        if B * -(-n_real // 256) * 256 > FUZZ_MAX_ELEMS:
+            continue
+        cases.append((B, n_real, str(rng.choice(list(FUZZ_DTYPES))),
+                      bool(rng.random() < 0.5)))
+    return cases
+
+
+def fuzz_fused(rng, device):
+    """Phase 18 (a), the fused kernel → (cases, graph cases, geometries
+    reached, largest raw difference)."""
+    import torch
+
+    from mdanalysis_mpi_tpu_torch.ops import fused_planar as fp
+
+    dev = torch.device(device)
+    sms = sm_count(device)
+    seen = set()
+    n_graph = worst = 0
+    draws = fuzz_fused_draws(rng, sms)
+    for i, (B, n_real, dtype, per_frame) in enumerate(draws):
+        args, T = fuzz_planes(rng, B, n_real, dtype, per_frame, dev)
+        S = args[0].shape[2]
+        geom = fp.fused_geometry(B, S, FUZZ_DTYPES[dtype], sms)
+        seen.add((dtype, S) + geom)
+        what = (f"fuzz fused case {i}: B={B} n_real={n_real} S={S} {dtype} "
+                f"per_frame={per_frame} T={T:.0f} geometry {geom}")
+        out = fp.planar_sums(*args)
+        plain = fp.planar_sums_plain(*args)
+        mean_err = ((out[:3] - plain[:3]) / T).abs().max().item()
+        m2_err = ((out[3:] - out[:3] ** 2 / T)
+                  - (plain[3:] - plain[:3] ** 2 / T)).abs().max().item()
+        check(bool(torch.isfinite(out).all()), f"{what}: non-finite sums")
+        check(mean_err <= 5e-4 and m2_err <= 5e-3,
+              f"{what}: mean differs by {mean_err:.3g} (limit 5e-4), M2 by "
+              f"{m2_err:.3g} (limit 5e-3)")
+        worst = max(worst, (out - plain).abs().max().item())
+        if i % FUZZ_GRAPH_EVERY == 0:
+            n_graph += 1
+            for again in replay(lambda: fp.planar_sums(*args)):
+                check(torch.equal(again, out),
+                      f"{what}: a graph replay differs from the eager run")
+        del args, out, plain
+    return len(draws), n_graph, seen, worst
+
+
+def fuzz_geometry_reached(seen, sms):
+    """Check that phase 18 (a) reached the launch geometry's corners and
+    print the distinct ``(slice, blocks, group, stages)`` tuples."""
+    from mdanalysis_mpi_tpu_torch.ops import fused_planar as fp
+
+    geoms = sorted({g[2:] for g in seen})
+    print(f"fuzz fused geometries reached ({len(geoms)} distinct "
+          f"(slice, blocks, group, stages) on {sms} SMs): "
+          + " ".join(f"({','.join(map(str, g))})" for g in geoms))
+    # each entry: (dtype, S, slice, blocks, group, stages)
+    groups = {(e[0], e[4]) for e in seen}
+    stages = {e[5] for e in seen}
+    shorter = [e for e in seen if e[2] * e[3] > e[1]]
+    need = [("group 1", any(g == 1 for _, g in groups))]
+    for dtype, itemsize in FUZZ_DTYPES.items():
+        need.append((f"{dtype}'s largest group {24 // itemsize}",
+                     (dtype, 24 // itemsize) in groups))
+    need += [("stages 2", 2 in stages),
+             (f"stages {fp.MAX_STAGES}", fp.MAX_STAGES in stages),
+             ("a shorter last slice", bool(shorter))]
+    missing = [name for name, ok in need if not ok]
+    check(not missing, f"fuzz fused sweep missed {missing}")
+    print("fuzz fused corners reached: " + ", ".join(n for n, _ in need))
+
+
+def fuzz_pair_histogram(rng, device):
+    """Phase 18 (a), the pair-histogram kernel → (cases, graph cases,
+    pairs binned)."""
+    import torch
+
+    from mdanalysis_mpi_tpu_torch.ops import fused_distances as fd
+
+    dev = torch.device(device)
+    n_graph = total = 0
+    for i in range(FUZZ_PH_CASES):
+        B = int(rng.integers(1, 9))
+        N = int(np.exp(rng.uniform(0, np.log(5001))))
+        same = i % 4 == 0
+        M = N if same else int(np.exp(rng.uniform(0, np.log(5001))))
+        L = rng.uniform(8.0, 60.0, size=3)
+        L[rng.random(3) < 0.2] = 0.0                 # no PBC on that axis
+        span = np.where(L > 0, L, 40.0)
+        a = rng.uniform(0, 1, size=(B, N, 3)) * span
+        b = a if same else rng.uniform(0, 1, size=(B, M, 3)) * span
+        if rng.random() < 0.5:                       # outside the box
+            a = a + rng.integers(-2, 3, size=a.shape) * L
+            if not same:
+                b = b + rng.integers(-2, 3, size=b.shape) * L
+        nbins = int(np.exp(rng.uniform(0, np.log(513))))
+        r0 = 0.0 if rng.random() < 0.5 else float(rng.uniform(0, 6))
+        if rng.random() < 0.5:
+            edges = r0 + np.linspace(0, rng.uniform(2, 20), nbins + 1)
+        else:
+            edges = r0 + np.concatenate(
+                [[0.0], np.cumsum(rng.uniform(0.01, 1.0, nbins))])
+        box = None if rng.random() < 0.1 else torch.from_numpy(np.tile(
+            np.r_[L, 90.0, 90.0, 90.0], (B, 1)).astype(np.float32)).to(dev)
+        ta = torch.from_numpy(a.astype(np.float32)).to(dev)
+        tb = ta if same else torch.from_numpy(b.astype(np.float32)).to(dev)
+        te = torch.from_numpy(edges.astype(np.float32)).to(dev)
+        excl = same and rng.random() < 0.75
+
+        def kernel():
+            return fd.pair_histogram(ta, tb, box=box, exclude_self=excl,
+                                     edges=te)
+
+        out = kernel()
+        plain = fd.pair_histogram_plain(ta, tb, fd._lengths(box, B, dev),
+                                        te, excl)
+        what = (f"fuzz pair-histogram case {i}: B={B} N={N} M={M} "
+                f"a_is_b={same} exclude_self={excl} L={np.round(L, 2)} "
+                f"box={'none' if box is None else 'ortho'} nbins={nbins} "
+                f"r0={r0:.3f}")
+        check_equal(what, out, plain)
+        total += float(out.sum())
+        if i % FUZZ_GRAPH_EVERY == 0:
+            n_graph += 1
+            for again in replay(kernel):
+                check(torch.equal(again, out),
+                      f"{what}: a graph replay differs from the eager run")
+    return FUZZ_PH_CASES, n_graph, total
+
+
+def fuzz_runs(rng, device, mesh):
+    """Phase 18 (b): tests/test_torch_backend_fuzz.py's draws on the
+    device, each run on ``'torch'`` and on the two-shard mesh → the
+    runs made."""
+    from mdanalysis_mpi_tpu_torch.analysis import (AlignedRMSF,
+                                                   AnalysisCollection,
+                                                   InterRDF, RMSD, RMSF)
+    from mdanalysis_mpi_tpu_torch.testing import (make_protein_universe,
+                                                  make_water_universe)
+
+    backends = {"torch": dict(backend="torch", device=device),
+                "mesh": dict(backend="mesh", devices=mesh)}
+    plain = {"torch": dict(backend="torch", device=FUZZ_PLAIN_DEVICE),
+             "mesh": dict(backend="mesh",
+                          devices=[FUZZ_PLAIN_DEVICE] * len(mesh))}
+    n_runs = 0
+    for seed in range(FUZZ_RUN_SEEDS):
+        for name, kw in backends.items():
+            r = np.random.default_rng(1800 + seed)
+            n_res, n_frames = int(r.integers(3, 40)), int(r.integers(2, 60))
+            batch = int(r.integers(1, 24))
+            start = int(r.integers(0, max(1, n_frames // 3)))
+            step = int(r.integers(1, 4))
+            sel = str(r.choice(["name CA", "name CA CB",
+                                "protein and heavy", "resid 1:2"]))
+            window = dict(start=start, step=step)
+            if len(range(start, n_frames, step)) < 2:
+                window = {}
+            tdtype = str(r.choice(["float32", "int16"]))
+            u = make_protein_universe(n_residues=n_res, n_frames=n_frames,
+                                      noise=0.3, seed=seed)
+            ag = u.select_atoms(sel)
+            what = (f"fuzz run seed {seed} {name}: {n_res} residues x "
+                    f"{n_frames} frames, {sel!r}, batch {batch}, {window}")
+            run = dict(kw, batch_size=batch, **window)
+
+            def gate(got, want, tol, label):
+                err = float(np.abs(np.asarray(got) - want).max())
+                check(err <= tol, f"{what}: {label} differs from serial by "
+                      f"{err:.3g} (limit {tol})")
+                return err
+
+            s = AlignedRMSF(u, select=sel).run(backend="serial", **window)
+            tol = 1e-3 if tdtype == "int16" else 2e-4
+            gate(AlignedRMSF(u, select=sel).run(
+                transfer_dtype=tdtype, **run).results.rmsf,
+                s.results.rmsf, tol, f"AlignedRMSF {tdtype}")
+            gate(RMSD(ag).run(transfer_dtype=tdtype, **run).results.rmsd,
+                 RMSD(ag).run(backend="serial", **window).results.rmsd,
+                 tol, f"RMSD {tdtype}")
+            s_rmsf = RMSF(ag).run(backend="serial", **window).results.rmsf
+            gate(RMSF(ag).run(transfer_dtype=tdtype, **run).results.rmsf,
+                 s_rmsf, tol, f"RMSF {tdtype}")
+            gate(AlignedRMSF(u, select=sel, engine="fused").run(
+                transfer_dtype="int16", **run).results.rmsf,
+                s.results.rmsf, 1e-3, "fused int16 AlignedRMSF")
+            sel2 = str(r.choice(["name CB", "protein", "name CA"]))
+            coll = AnalysisCollection(RMSF(ag), RMSF(u.select_atoms(sel2)))
+            coll.run(**run)
+            gate(coll.analyses[0].results.rmsf, s_rmsf, 2e-4,
+                 "collection[0] RMSF")
+            gate(coll.analyses[1].results.rmsf, RMSF(u.select_atoms(
+                sel2)).run(backend="serial", **window).results.rmsf, 2e-4,
+                f"collection[1] RMSF {sel2!r}")
+            # the coarse wires: against the plain version's run on the
+            # same wire (5e-4 Å, delta 5e-3 Å: the staged bytes are the
+            # host's, so both runs see the same wire), and within the
+            # int8 resolution of the oracle (tests/test_int8_staging.py)
+            resolution = float(np.abs(u.trajectory.coordinates).max()) / 120
+            for wire, same in (("int8", 5e-4), ("delta", 5e-3)):
+                got = AlignedRMSF(u, select=sel, engine="fused").run(
+                    transfer_dtype=wire, **run).results.rmsf
+                ref = AlignedRMSF(u, select=sel, engine="fused").run(
+                    **plain[name], batch_size=batch, transfer_dtype=wire,
+                    **window).results.rmsf
+                err = float(np.abs(got - ref).max())
+                check(err <= same, f"{what}: fused {wire} differs from its "
+                      f"plain version's run by {err:.3g} (limit {same})")
+                gate(got, s.results.rmsf, resolution, f"fused {wire}")
+            waters = int(r.integers(*FUZZ_WATERS))
+            wu = make_water_universe(n_waters=waters, n_frames=int(
+                r.integers(2, 12)), box=(waters / 0.0334) ** (1 / 3),
+                seed=seed)
+            ow = wu.select_atoms("name OW")
+            rk = InterRDF(ow, ow, engine="auto").run(
+                **kw, batch_size=int(r.integers(1, 8)))
+            check(rk._resolved_engine == "pallas",
+                  f"{what}: 'auto' resolved to {rk._resolved_engine!r}")
+            rs = InterRDF(ow, ow).run(backend="serial")
+            d_g = float(np.abs(rk.results.rdf - rs.results.rdf).max())
+            check(d_g < 0.05, f"{what}: InterRDF of {waters} waters: max "
+                  f"|d g(r)| {d_g:.3g} (limit 0.05)")
+            n_runs += 10
+    return n_runs
+
+
+def phase_fuzz(card, device=None):
+    """Phase 18: both hand kernels at random geometries against their
+    plain versions, a third of the cases replayed from a CUDA graph,
+    then the CPU fuzz's draws on the card → (fused launches, pair-
+    histogram launches), which count nowhere else."""
+    import torch
+
+    from mdanalysis_mpi_tpu_torch.ops import fused_distances as fd
+    from mdanalysis_mpi_tpu_torch.ops import fused_planar as fp
+
+    device = FUZZ_DEVICE if device is None else device
+    t0 = time.perf_counter()
+    print(f"fuzz seed {FUZZ_SEED} (numpy default_rng)")
+    rng = np.random.default_rng(FUZZ_SEED)
+    fp.planar_sums.launches = fd.pair_histogram.launches = 0
+    n_f, g_f, seen, worst = fuzz_fused(rng, device)
+    fuzz_geometry_reached(seen, sm_count(device))
+    print(f"fuzz fused: {n_f} cases within the moments' tolerance (mean "
+          f"5e-4, M2 5e-3), {g_f} replayed twice from a CUDA graph equal "
+          f"to their eager runs; largest raw |kernel - plain| {worst:.3g}")
+    n_p, g_p, total = fuzz_pair_histogram(rng, device)
+    print(f"fuzz pair histogram: {n_p} cases with counts EQUAL to the "
+          f"plain version's ({total:.0f} pairs binned), {g_p} replayed "
+          "twice from a CUDA graph equal to their eager runs")
+    t_kernels = time.perf_counter() - t0
+    n_runs = fuzz_runs(rng, device, FUZZ_MESH)
+    torch.cuda.synchronize()
+    c_fused, c_ph = fp.planar_sums.launches, fd.pair_histogram.launches
+    print(f"fuzz runs: {n_runs} runs of {FUZZ_RUN_SEEDS} seeds on 'torch' "
+          f"and the two-shard mesh {FUZZ_MESH} within their gates")
+    print(f"fuzz phase launches (not on the main path): {KERNEL_NAME} "
+          f"{c_fused}, {PH_NAME} {c_ph}")
+    check(c_fused > 0 and c_ph > 0,
+          f"fuzz phase launched fused {c_fused}, pair histogram {c_ph}")
+    print(f"fuzz phase: {time.perf_counter() - t0:.1f} s (kernels "
+          f"{t_kernels:.1f} s) on {card}")
+    return c_fused, c_ph
+
+
 #: phases that run on the water box built once for them
 WATER_PHASES = {3, 5, 10, 12, 13, 14, 15, 16, 17}
 #: phases that launch each kernel on its main path (phase 16's fused
@@ -4991,6 +5425,8 @@ def main(argv=None):
             phase_configs(card)
         if 11 in phases:
             phase_neighbours(card)
+        if 18 in phases:
+            phase_fuzz(card)
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", file=sys.stderr)
         return 1

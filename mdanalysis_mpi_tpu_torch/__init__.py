@@ -43,14 +43,24 @@ from mdanalysis_mpi_tpu_torch import units
 __version__ = "0.1.0"
 
 __all__ = ["Universe", "Merge", "AtomGroup", "UpdatingAtomGroup",
-           "Topology", "units", "__version__"]
+           "Topology", "analysis", "units", "__version__"]
 
 
 def __getattr__(name):
+    # lazy: the analysis and ops layers import torch, which core users
+    # (topology-only tooling) should not pay for
     if name == "Writer":
         # upstream `mda.Writer(filename, n_atoms)` factory, loaded lazily
         from mdanalysis_mpi_tpu_torch.io.writer import Writer
 
         return Writer
+    if name in ("analysis", "ops", "parallel", "io", "utils", "obs"):
+        import importlib
+
+        try:
+            return importlib.import_module(f"mdanalysis_mpi_tpu_torch.{name}")
+        except ModuleNotFoundError as e:
+            # keep the module-__getattr__ contract (hasattr/getattr)
+            raise AttributeError(str(e)) from e
     raise AttributeError(
         f"module 'mdanalysis_mpi_tpu_torch' has no attribute {name!r}")

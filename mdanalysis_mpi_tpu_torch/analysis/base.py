@@ -136,13 +136,23 @@ def deferred_group(finalize):
             state.update(finalize())
         return state
 
-    class _Group(dict):
-        def __missing__(self, key):
-            d = Deferred(lambda: _run()[key])
-            self[key] = d
-            return d
+    return _DeferredGroup(_run)
 
-    return _Group()
+
+class _DeferredGroup(dict):
+    """:func:`deferred_group`'s mapping: one class for every group (a
+    class made per call is a reference cycle, which would keep the
+    results it reaches alive until the cyclic collector runs)."""
+
+    def __init__(self, run):
+        super().__init__()
+        self._run = run
+
+    def __missing__(self, key):
+        run = self._run
+        d = Deferred(lambda: run()[key])
+        self[key] = d
+        return d
 
 
 def reject_updating_groups(*groups, owner: str) -> None:
@@ -268,7 +278,13 @@ class AnalysisBase:
     def _refuse_updating_groups(self):
         from mdanalysis_mpi_tpu_torch.core.groups import UpdatingAtomGroup
 
-        def scan(value):
+        # a loop, not a recursive closure: a closure that names itself
+        # and ``self`` is a reference cycle that keeps the analysis (its
+        # results, device blocks and graphs) alive until the cyclic
+        # collector runs, whose pause then lands in a later run
+        stack = list(vars(self).values())
+        while stack:
+            value = stack.pop()
             if isinstance(value, UpdatingAtomGroup):
                 raise TypeError(
                     f"{type(self).__name__} snapshots its selection into "
@@ -276,11 +292,7 @@ class AnalysisBase:
                     "track an UpdatingAtomGroup's per-frame membership; "
                     "pass a static group")
             if isinstance(value, (tuple, list)):
-                for v in value:
-                    scan(v)
-
-        for v in vars(self).values():
-            scan(v)
+                stack.extend(value)
 
     def _frames(self, start, stop, step, frames=None):
         n = self._universe.trajectory.n_frames

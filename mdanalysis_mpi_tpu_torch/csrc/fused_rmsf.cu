@@ -44,9 +44,9 @@
 //   - frame solver (warp 0): frame f is solved by block f % blocks.  It
 //     reads the blocks' 12 partials of the frame (lane-strided, then a
 //     fixed butterfly: block order never depends on timing), applies the
-//     scale and the com (x) sref fix-up, runs qcp_rotation (unchanged
-//     from the four-stage form) on one thread and stores the frame's
-//     record: R, com, scale, fmask.
+//     scale and the com (x) sref fix-up, runs qcp_rotation (its solve in
+//     double) on one thread and stores the frame's record: R, com, scale,
+//     fmask.
 //   - rotations (warp 14): a group's records into one of four buffers in
 //     shared memory.
 //   - moments (warps 7-12): two atoms per thread; per group, once its
@@ -308,82 +308,91 @@ __device__ __forceinline__ float reduce12(const float a[12], int lane) {
   return v[0] + __shfl_xor_sync(kFull, v[0], 1);
 }
 
-__device__ __forceinline__ float det3(float b00, float b01, float b02,
-                                      float b10, float b11, float b12,
-                                      float b20, float b21, float b22) {
+__device__ __forceinline__ double det3(double b00, double b01, double b02,
+                                       double b10, double b11, double b12,
+                                       double b20, double b21, double b22) {
   return b00 * (b11 * b22 - b12 * b21) - b01 * (b10 * b22 - b12 * b20) +
          b02 * (b10 * b21 - b11 * b20);
 }
 
 // QCP rotation (Theobald 2005) of the 3x3 correlation H (row-major,
 // H = mobile^T ref): R row-major with aligned = mobile @ R.  The
-// constants and the order of operations follow _qcp_rotation.
+// constants and the order of operations follow _qcp_rotation.  The
+// normalisation and the quaternion's rotation run in float; the key
+// matrix, the quartic, Newton and the adjugate in double: where the top
+// eigenvalue of K is (nearly) double -- two atoms, or collinear ones --
+// a float quartic loses the root and a float adjugate the eigenvector,
+// and a two-atom selection's rotation misses the float64 Kabsch far
+// beyond the kernel tests' tolerance (ROADMAP C5).  The plain version
+// solves in double too.  Newton stops once a step is below 1e-15 of the
+// root: a simple root is reached in a few steps (the TPU kernel always
+// takes 40), a double one runs the 40.
 __device__ void qcp_rotation(const float h_in[9], float r[9]) {
-  float h00 = h_in[0], h01 = h_in[1], h02 = h_in[2];
-  float h10 = h_in[3], h11 = h_in[4], h12 = h_in[5];
-  float h20 = h_in[6], h21 = h_in[7], h22 = h_in[8];
-
   // Frobenius-normalise: raw lambda^4-scale terms overflow float32
-  const float trHH_raw = h00 * h00 + h01 * h01 + h02 * h02 + h10 * h10 +
-                         h11 * h11 + h12 * h12 + h20 * h20 + h21 * h21 +
-                         h22 * h22;
+  const float trHH_raw = h_in[0] * h_in[0] + h_in[1] * h_in[1] +
+                         h_in[2] * h_in[2] + h_in[3] * h_in[3] +
+                         h_in[4] * h_in[4] + h_in[5] * h_in[5] +
+                         h_in[6] * h_in[6] + h_in[7] * h_in[7] +
+                         h_in[8] * h_in[8];
   const float fro = fmaxf(sqrtf(trHH_raw), 1e-30f);
   const float s = 1.0f / fro;
-  h00 *= s; h01 *= s; h02 *= s;
-  h10 *= s; h11 *= s; h12 *= s;
-  h20 *= s; h21 *= s; h22 *= s;
+  const double h00 = h_in[0] * s, h01 = h_in[1] * s, h02 = h_in[2] * s;
+  const double h10 = h_in[3] * s, h11 = h_in[4] * s, h12 = h_in[5] * s;
+  const double h20 = h_in[6] * s, h21 = h_in[7] * s, h22 = h_in[8] * s;
 
   // key matrix K (4x4 symmetric)
-  const float k00 = h00 + h11 + h22;
-  const float k01 = h12 - h21;
-  const float k02 = h20 - h02;
-  const float k03 = h01 - h10;
-  const float k11 = h00 - h11 - h22;
-  const float k12 = h01 + h10;
-  const float k13 = h20 + h02;
-  const float k22 = -h00 + h11 - h22;
-  const float k23 = h12 + h21;
-  const float k33 = -h00 - h11 + h22;
+  const double k00 = h00 + h11 + h22;
+  const double k01 = h12 - h21;
+  const double k02 = h20 - h02;
+  const double k03 = h01 - h10;
+  const double k11 = h00 - h11 - h22;
+  const double k12 = h01 + h10;
+  const double k13 = h20 + h02;
+  const double k22 = -h00 + h11 - h22;
+  const double k23 = h12 + h21;
+  const double k33 = -h00 - h11 + h22;
 
   // characteristic quartic P(l) = l^4 + c2 l^2 + c1 l + c0
-  const float trHH = h00 * h00 + h01 * h01 + h02 * h02 + h10 * h10 +
-                     h11 * h11 + h12 * h12 + h20 * h20 + h21 * h21 +
-                     h22 * h22;
-  const float detH = h00 * (h11 * h22 - h12 * h21) -
-                     h01 * (h10 * h22 - h12 * h20) +
-                     h02 * (h10 * h21 - h11 * h20);
-  const float c2 = -2.0f * trHH;
-  const float c1 = -8.0f * detH;
-  const float d0 = k11 * (k22 * k33 - k23 * k23) -
-                   k12 * (k12 * k33 - k23 * k13) +
-                   k13 * (k12 * k23 - k22 * k13);
-  const float d1 = k01 * (k22 * k33 - k23 * k23) -
-                   k12 * (k02 * k33 - k23 * k03) +
-                   k13 * (k02 * k23 - k22 * k03);
-  const float d2 = k01 * (k12 * k33 - k23 * k13) -
-                   k11 * (k02 * k33 - k23 * k03) +
-                   k13 * (k02 * k13 - k12 * k03);
-  const float d3 = k01 * (k12 * k23 - k22 * k13) -
-                   k11 * (k02 * k23 - k22 * k03) +
-                   k12 * (k02 * k13 - k12 * k03);
-  const float c0 = k00 * d0 - k01 * d1 + k02 * d2 - k03 * d3;
+  const double trHH = h00 * h00 + h01 * h01 + h02 * h02 + h10 * h10 +
+                      h11 * h11 + h12 * h12 + h20 * h20 + h21 * h21 +
+                      h22 * h22;
+  const double detH = h00 * (h11 * h22 - h12 * h21) -
+                      h01 * (h10 * h22 - h12 * h20) +
+                      h02 * (h10 * h21 - h11 * h20);
+  const double c2 = -2.0 * trHH;
+  const double c1 = -8.0 * detH;
+  const double d0 = k11 * (k22 * k33 - k23 * k23) -
+                    k12 * (k12 * k33 - k23 * k13) +
+                    k13 * (k12 * k23 - k22 * k13);
+  const double d1 = k01 * (k22 * k33 - k23 * k23) -
+                    k12 * (k02 * k33 - k23 * k03) +
+                    k13 * (k02 * k23 - k22 * k03);
+  const double d2 = k01 * (k12 * k33 - k23 * k13) -
+                    k11 * (k02 * k33 - k23 * k03) +
+                    k13 * (k02 * k13 - k12 * k03);
+  const double d3 = k01 * (k12 * k23 - k22 * k13) -
+                    k11 * (k02 * k23 - k22 * k03) +
+                    k12 * (k02 * k13 - k12 * k03);
+  const double c0 = k00 * d0 - k01 * d1 + k02 * d2 - k03 * d3;
 
   // Newton from above: lambda_max <= sqrt(3 tr(H^T H))
-  float lam = sqrtf(3.0f * trHH) + 1e-6f;
+  double lam = sqrt(3.0 * trHH) + 1e-6;
   for (int it = 0; it < kNewtonIters; ++it) {
-    const float lam2 = lam * lam;
-    const float p = lam2 * lam2 + c2 * lam2 + c1 * lam + c0;
-    float dp = 4.0f * lam2 * lam + 2.0f * c2 * lam + c1;
-    if (fabsf(dp) < 1e-30f) dp = 1e-30f;
-    lam = lam - p / dp;
+    const double lam2 = lam * lam;
+    const double p = lam2 * lam2 + c2 * lam2 + c1 * lam + c0;
+    double dp = 4.0 * lam2 * lam + 2.0 * c2 * lam + c1;
+    if (fabs(dp) < 1e-30) dp = 1e-30;
+    const double step = p / dp;
+    lam = lam - step;
+    if (fabs(step) <= 1e-15 * lam) break;
   }
 
   // eigenvector of K at lambda: the max-norm row of adj(K - lambda I)
-  const float a00 = k00 - lam, a11 = k11 - lam, a22 = k22 - lam,
-              a33 = k33 - lam;
-  const float a01 = k01, a02 = k02, a03 = k03, a12 = k12, a13 = k13,
-              a23 = k23;
-  float rows[4][4];
+  const double a00 = k00 - lam, a11 = k11 - lam, a22 = k22 - lam,
+               a33 = k33 - lam;
+  const double a01 = k01, a02 = k02, a03 = k03, a12 = k12, a13 = k13,
+               a23 = k23;
+  double rows[4][4];
   rows[0][0] = det3(a11, a12, a13, a12, a22, a23, a13, a23, a33);
   rows[0][1] = -det3(a01, a12, a13, a02, a22, a23, a03, a23, a33);
   rows[0][2] = det3(a01, a11, a13, a02, a12, a23, a03, a13, a33);
@@ -401,25 +410,25 @@ __device__ void qcp_rotation(const float h_in[9], float r[9]) {
   rows[3][2] = -det3(a00, a01, a03, a01, a11, a13, a02, a12, a23);
   rows[3][3] = det3(a00, a01, a02, a01, a11, a12, a02, a12, a22);
 
-  float qa = rows[0][0], qb = rows[0][1], qc = rows[0][2], qd = rows[0][3];
-  float nbest = qa * qa + qb * qb + qc * qc + qd * qd;
+  double qa = rows[0][0], qb = rows[0][1], qc = rows[0][2], qd = rows[0][3];
+  double nbest = qa * qa + qb * qb + qc * qc + qd * qd;
 #pragma unroll
   for (int i = 1; i < 4; ++i) {
-    const float n = rows[i][0] * rows[i][0] + rows[i][1] * rows[i][1] +
-                    rows[i][2] * rows[i][2] + rows[i][3] * rows[i][3];
+    const double n = rows[i][0] * rows[i][0] + rows[i][1] * rows[i][1] +
+                     rows[i][2] * rows[i][2] + rows[i][3] * rows[i][3];
     if (n > nbest) {
       qa = rows[i][0]; qb = rows[i][1]; qc = rows[i][2]; qd = rows[i][3];
     }
-    nbest = fmaxf(nbest, n);
+    nbest = fmax(nbest, n);
   }
 
-  const float nrm = sqrtf(fmaxf(nbest, 0.0f));
-  const bool degenerate = nrm < 1e-18f;
-  const float invn = degenerate ? 0.0f : 1.0f / fmaxf(nrm, 1e-30f);
-  const float qw = degenerate ? 1.0f : qa * invn;
-  const float qx = qb * invn;
-  const float qy = qc * invn;
-  const float qz = qd * invn;
+  const double nrm = sqrt(fmax(nbest, 0.0));
+  const bool degenerate = nrm < 1e-18;
+  const double invn = degenerate ? 0.0 : 1.0 / fmax(nrm, 1e-30);
+  const float qw = degenerate ? 1.0f : static_cast<float>(qa * invn);
+  const float qx = static_cast<float>(qb * invn);
+  const float qy = static_cast<float>(qc * invn);
+  const float qz = static_cast<float>(qd * invn);
 
   // quaternion -> rotation, conjugate orientation (aligned = mobile @ R)
   r[0] = qw * qw + qx * qx - qy * qy - qz * qz;

@@ -18,8 +18,15 @@ per-frame rotation solved by QCP inside the sweep.
   kernel launches: one cooperative launch per call on the current
   stream, after one fill of its scratch (``torch.full``).
 - :func:`planar_sums_plain` is the kernel's plain version: the TPU
-  kernel's own algebra (``pallas_fused._build_planar``) in torch ops,
-  with :func:`qcp_rotation`.
+  kernel's algebra (``pallas_fused._build_planar``) in torch ops, but
+  for the rotation solve, where it departs from the TPU kernel:
+  :func:`qcp_rotation` runs in float64, as the kernel's does, while the
+  TPU kernel's float32 solve loses the rotation of a two-atom or
+  collinear selection (ROADMAP §C, C5).  tests/test_torch_fused.py
+  ``test_two_atom_rotation_departs_from_the_tpu_kernel`` records the
+  departure; tests/test_torch_ops.py
+  ``test_planar_sums_plain_holds_a_float64_kabsch`` anchors the plain
+  version to a float64 SVD Kabsch.
 - :func:`fused_geometry` sizes the launch: one block per SM, each owning
   a slice of atoms (a multiple of 16), frames in groups of ``group``
   copied into a ring of ``stages`` shared-memory stages.
@@ -73,7 +80,8 @@ def _inv_column(inv_scale, B: int, device) -> torch.Tensor:
 def planar_sums_plain(qp, inv_scale, wN, refc_p, amask, sref, fmask):
     """The kernel's plain version: ``(3, B, S)`` planes → ``(6, S)``
     float32 (rows 0-2 ``Σdev``, rows 3-5 ``Σdev²``), the TPU kernel's
-    sweep written in torch ops over the whole block at once."""
+    sweep written in torch ops over the whole block at once, with the
+    rotation solved in float64 (the module's note on C5)."""
     B = qp.shape[1]
     inv = _inv_column(inv_scale, B, qp.device)
     x0, x1, x2 = (qp[i].to(torch.float32) * inv for i in range(3))
@@ -91,7 +99,11 @@ def planar_sums_plain(qp, inv_scale, wN, refc_p, amask, sref, fmask):
          (x2 * r0).sum(dim=1) - com2 * s0,
          (x2 * r1).sum(dim=1) - com2 * s1,
          (x2 * r2).sum(dim=1) - com2 * s2]
-    R = [r[:, None] for r in qcp_rotation(h)]
+    # the rotation is solved in float64, as the kernel solves it: in
+    # float32 QCP loses the rotation where K's top eigenvalue is
+    # (nearly) double (two atoms, collinear ones)
+    R = [r[:, None].to(torch.float32)
+         for r in qcp_rotation([hk.to(torch.float64) for hk in h])]
     xc0 = x0 - com0[:, None]
     xc1 = x1 - com1[:, None]
     xc2 = x2 - com2[:, None]

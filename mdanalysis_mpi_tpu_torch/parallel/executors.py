@@ -312,16 +312,18 @@ def _unalias(out, staged):
     series functions return the mask): the staged tensors may be
     released (:func:`_delete_staged`) while a result lives on."""
     ptrs = {t.untyped_storage().data_ptr() for t in _tensors(staged)}
+    return _unalias_tree(out, ptrs)
 
-    def fix(x):
-        if isinstance(x, (tuple, list)):
-            return type(x)(fix(y) for y in x)
-        if (isinstance(x, torch.Tensor)
-                and x.untyped_storage().data_ptr() in ptrs):
-            return x.clone()
-        return x
 
-    return fix(out)
+def _unalias_tree(x, ptrs):
+    # module level, not a closure: a recursive closure is a reference
+    # cycle left for the cyclic collector
+    if isinstance(x, (tuple, list)):
+        return type(x)(_unalias_tree(y, ptrs) for y in x)
+    if (isinstance(x, torch.Tensor)
+            and x.untyped_storage().data_ptr() in ptrs):
+        return x.clone()
+    return x
 
 
 def _is_deleted(t: torch.Tensor) -> bool:
@@ -1421,11 +1423,16 @@ class TorchExecutor:
 def _resolve_devices(devices) -> list:
     """The mesh's device list.  None: every visible CUDA device, or
     under several processes the one at ``rank % device_count``; a
-    repeated entry stands for that many shards on one device."""
+    default device that is not CUDA (``device.DEFAULT_DEVICE``) is the
+    one shard, as the JAX package's mesh spans its default platform's
+    devices.  A repeated entry stands for that many shards on one
+    device."""
     if devices is None:
         from mdanalysis_mpi_tpu_torch.parallel.distributed import world
 
-        resolve_device(None)          # raises without a card
+        default = resolve_device(None)          # raises without a card
+        if default.type != "cuda":
+            return [default]
         n = torch.cuda.device_count()
         rank, size = world()
         if size > 1:

@@ -12,6 +12,7 @@ from mdanalysis_mpi_tpu_torch.utils.config import (AnalysisConfig,
                                                    build_analysis,
                                                    run_config)
 from mdanalysis_mpi_tpu_torch.utils.log import get_logger, log_event
+from mdanalysis_mpi_tpu_torch.utils.timers import TIMERS, PhaseTimers
 
-__all__ = ["get_logger", "log_event", "AnalysisConfig", "build_analysis",
-           "run_config"]
+__all__ = ["PhaseTimers", "TIMERS", "get_logger", "log_event",
+           "AnalysisConfig", "build_analysis", "run_config"]

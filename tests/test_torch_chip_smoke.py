@@ -144,3 +144,77 @@ def test_phase_17_runs_after_13_and_counts_on_both_paths(capsys):
                                              part) is None
     out = capsys.readouterr().out
     assert "[4, 8, 14, 15, 16, 9, 10]" in out and "[5, 15, 10]" in out
+
+
+def test_phase_18_runs_last_and_needs_no_other_phase():
+    assert chip_smoke.PHASE_ORDER[-1] == 18
+    assert 18 not in chip_smoke.NEEDS
+    assert 18 not in chip_smoke.FUSED_PHASES + chip_smoke.PH_PHASES
+    assert chip_smoke.select_phases(["--phases", "18"]) == {1, 2, 18}
+
+
+def test_phase_18_fused_draws_force_the_geometry_corners():
+    """The forced cases alone reach every corner the phase checks, on
+    the H100's 132 SMs; the drawn ones stay within the main shape."""
+    import numpy as np
+
+    from mdanalysis_mpi_tpu_torch.ops import fused_planar as fp
+
+    draws = chip_smoke.fuzz_fused_draws(np.random.default_rng(0), 132)
+    assert len(draws) == chip_smoke.FUZZ_FUSED_CASES + 8
+    seen = set()
+    for B, n_real, dtype, _ in draws[:8]:
+        S = -(-n_real // 256) * 256
+        seen.add((dtype, S) + fp.fused_geometry(
+            B, S, chip_smoke.FUZZ_DTYPES[dtype], 132))
+    chip_smoke.fuzz_geometry_reached(seen, 132)
+    for B, n_real, dtype, _ in draws[8:]:
+        assert 1 <= B < 600 and 1 <= n_real < 70000
+        assert B * (-(-n_real // 256) * 256) <= chip_smoke.FUZZ_MAX_ELEMS
+
+
+def test_phase_18_rehearsed_on_the_cpu(monkeypatch, capsys):
+    """Phase 18 end to end at a small size on the CPU: the plain
+    versions stand in for the kernels (wrapped to count as the kernels'
+    wrappers do), the graph replay is two eager calls, ``'auto'``
+    resolves to the kernel route as on the card."""
+    import torch
+
+    from mdanalysis_mpi_tpu_torch import _build
+    from mdanalysis_mpi_tpu_torch.analysis import InterRDF
+    from mdanalysis_mpi_tpu_torch.ops import fused_distances as fd
+    from mdanalysis_mpi_tpu_torch.ops import fused_planar as fp
+
+    def counting(plain, wrapper):
+        def run(*a, **k):
+            _build.count_launch(wrapper)
+            return plain(*a, **k)
+        return run
+
+    monkeypatch.setattr(fp, "planar_sums_plain",
+                        counting(fp.planar_sums_plain, fp.planar_sums))
+    monkeypatch.setattr(fd, "pair_histogram_plain",
+                        counting(fd.pair_histogram_plain, fd.pair_histogram))
+    resolve = InterRDF._resolve_engine
+
+    def on_card(self):
+        if self._engine == "auto":
+            self._resolved_engine = "pallas"
+        return resolve(self)
+
+    monkeypatch.setattr(InterRDF, "_resolve_engine", on_card)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "sm_count", lambda device: 132)
+    monkeypatch.setattr(chip_smoke, "replay", lambda fn: [fn(), fn()])
+    for name, value in [("FUZZ_FUSED_CASES", 3), ("FUZZ_PH_CASES", 4),
+                        ("FUZZ_RUN_SEEDS", 1), ("FUZZ_MAX_ELEMS", 40_000),
+                        ("FUZZ_WATERS", (60, 90)), ("FUZZ_DEVICE", "cpu"),
+                        ("FUZZ_MESH", ["cpu"] * 2)]:
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(fp.planar_sums, "launches", 0)
+    monkeypatch.setattr(fd.pair_histogram, "launches", 0)
+    c_fused, c_ph = chip_smoke.phase_fuzz("cpu (rehearsal)")
+    assert c_fused > 0 and c_ph > 0
+    out = capsys.readouterr().out
+    assert "fuzz seed 18" in out and "fuzz phase launches" in out
+    assert "stages 2" in out and "group 1" in out

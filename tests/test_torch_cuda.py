@@ -120,8 +120,11 @@ def _assert_moments_close(out, plain, T):
     (100, 3000, "float32", 99),    # ... of 6
     (12, 200, "int16", None),      # S = 256: 16 blocks of 16 atoms
     (512, 50000, "int16", 510),    # the main shape: 131 blocks of 384
-    (24, 60000, "int16", 23)])     # slices above 384 atoms: w and ref
+    (24, 60000, "int16", 23),      # slices above 384 atoms: w and ref
                                    # from shared memory, 2+ pairs a thread
+    (31, 2, "float32", 10),        # two atoms: QCP's top eigenvalue is
+    (40, 2, "int16", None),        # double (chip_smoke phase 18's case;
+    (24, 2, "int8", 20)])          # a float32 solve missed by 5e-3)
 def test_cuda_kernel_matches_plain(B, n_real, dtype, valid_b):
     """Frames uncorrelated with the reference would give M2 near 1e4
     Å², where float32 rounding alone exceeds 5e-3: the inputs are the
@@ -1458,3 +1461,56 @@ def test_cuda_graph_nodes_of_a_plain_capture():
     assert [k for k, _, _ in nodes].count("memcpy_htod") == 1
     assert gc.host_constant_bytes(nodes) == 4 << 16
     assert [k for k, _, _ in nodes].count("kernel") == 2
+
+
+@pytest.mark.cuda
+def test_cuda_rdf_repeat_after_a_file_leg_leaves_nothing_to_collect(tmp_path):
+    """Phase 5's repeat after a phase-14-like load on the card: a fused
+    int16 AlignedRMSF from a TRR, dropped, then InterRDF twice.  The
+    file leg's analyses are freed when dropped, with their device blocks
+    and graphs, so no later collection has them to free: before the
+    repair a cycle through each analysis held it, and the collection
+    that freed them cost phase 5's repeat 0.63 s on an H100."""
+    import gc
+    import weakref
+
+    from mdanalysis_mpi_tpu_torch import Universe
+    from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF, InterRDF
+    from mdanalysis_mpi_tpu_torch.analysis.base import AnalysisBase, Results
+    from mdanalysis_mpi_tpu_torch.io.psf import write_psf
+    from mdanalysis_mpi_tpu_torch.io.writer import TrajectoryWriter
+    from mdanalysis_mpi_tpu_torch.testing import (make_protein_universe,
+                                                  make_water_universe)
+
+    _card()
+    u = make_protein_universe(n_residues=300, n_frames=64, seed=1)
+    top, trr = str(tmp_path / "t.psf"), str(tmp_path / "t.trr")
+    write_psf(top, u.topology)
+    with TrajectoryWriter(trr, u.atoms.n_atoms) as w:
+        for _ in u.trajectory:
+            w.write(u.atoms)
+    ow = make_water_universe(n_waters=500, n_frames=8,
+                             seed=0).select_atoms("name OW")
+    gc.collect()
+    gc.disable()
+    try:
+        leg = AlignedRMSF(Universe(top, trr), select="name CA",
+                          engine="fused")
+        leg.run(backend="torch", device="cuda", batch_size=16,
+                transfer_dtype="int16")
+        ref = weakref.ref(leg)
+        del leg
+        assert ref() is None
+        runs = [InterRDF(ow, ow).run(backend="torch", device="cuda",
+                                     batch_size=4) for _ in range(2)]
+        assert np.array_equal(runs[0].results.count, runs[1].results.count)
+        del runs
+        gc.set_debug(gc.DEBUG_SAVEALL)
+        gc.collect()
+        left = [type(o).__name__ for o in gc.garbage
+                if isinstance(o, (AnalysisBase, Results))]
+        assert left == []
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.enable()

@@ -204,3 +204,103 @@ def test_qcp_rotation_degenerate_is_identity():
     r_qcp, _, r_jq = _qcp_vs_svd(H)
     np.testing.assert_array_equal(r_qcp, np.broadcast_to(np.eye(3), (2, 3, 3)))
     np.testing.assert_array_equal(r_qcp, r_jq)
+
+
+def _planar_case(rng, B, n_real, dtype):
+    """Planes of a fused case on the CPU: a reference of coordinate
+    scale 20 Å, each frame a rigid motion of it plus 0.3 Å noise,
+    padded to 256 atoms → (the wrapper's arguments, T)."""
+    from mdanalysis_mpi_tpu_torch.ops import fused_rmsf as fr
+
+    idx_p, nr = fr.pad_selection(np.arange(n_real))
+    S = len(idx_p)
+    ref = rng.normal(scale=20.0, size=(n_real, 3))
+    masses = rng.uniform(1, 16, size=n_real)
+    com = (ref * (masses / masses.sum())[:, None]).sum(0)
+    q, _ = np.linalg.qr(rng.normal(size=(B, 3, 3)))
+    q *= np.sign(np.linalg.det(q))[:, None, None]
+    x = (np.einsum("ni,bji->bnj", ref, q) + rng.normal(scale=10.0,
+         size=(B, 1, 3)) + rng.normal(scale=0.3, size=(B, n_real, 3)))
+    x = np.concatenate([x, np.repeat(x[:, :1], S - n_real, 1)], 1)
+    planes = np.ascontiguousarray(np.moveaxis(x, 2, 0)).astype(np.float32)
+    if dtype == "float32":
+        qp, inv = planes, 1.0
+    else:
+        top = 32767.0 if dtype == "int16" else 127.0
+        inv = float(np.abs(planes).max()) / top
+        qp = np.round(planes / inv).astype(dtype)
+    wN, refc_p, _, amask, sref = fr.build_params(ref - com, com, masses,
+                                                 nr, S)
+    valid = int(rng.integers(1, B + 1))
+    fmask = np.zeros(B, np.float32)
+    fmask[:valid] = 1.0
+    args = (torch.from_numpy(qp), inv, wN, refc_p, amask, sref,
+            torch.from_numpy(fmask))
+    return args, float(valid)
+
+
+def _sums_kabsch_f64(qp, inv, wN, refc_p, amask, sref, fmask):
+    """The fused function in float64 with the rotation by SVD Kabsch:
+    the oracle of the plain version's QCP solve."""
+    x = qp.numpy().astype(np.float64) * inv                 # (3, B, S)
+    x = np.moveaxis(x, 0, 2)                                 # (B, S, 3)
+    w, ref = wN.double().numpy(), refc_p.double().numpy()
+    com = np.einsum("bsi,s->bi", x, w)
+    H = (np.einsum("bsi,sj->bij", x, ref)
+         - com[:, :, None] * sref.double().numpy()[None, None, :])
+    U, _, Vt = np.linalg.svd(H)
+    d = np.sign(np.linalg.det(U @ Vt))
+    U[:, :, -1] *= d[:, None]
+    R = U @ Vt
+    dev = (np.einsum("bsi,bij->bsj", x - com[:, None], R) - ref[None]) \
+        * amask.double().numpy()[None, :, None]
+    fm = fmask.double().numpy()[:, None, None]
+    return np.concatenate([(dev * fm).sum(0).T, (dev * dev * fm).sum(0).T])
+
+
+@pytest.mark.parametrize("seed", range(8))
+@pytest.mark.parametrize("dtype", ["float32", "int16", "int8"])
+@pytest.mark.parametrize("n_real", [1, 2, 40])
+def test_planar_sums_plain_holds_a_float64_kabsch(seed, dtype, n_real):
+    """The fused kernel's plain version against the same function in
+    float64 with an SVD Kabsch, at the kernel test's tolerances (mean
+    5e-4, M2 5e-3).  Two atoms make the top eigenvalue of QCP's key
+    matrix double (the rotation about their axis is free, and moves
+    neither atom); a float32 solve, the TPU kernel's, misses there
+    (:func:`test_two_atom_rotation_departs_from_the_tpu_kernel`), so
+    the plain version and the kernel solve in float64."""
+    rng = np.random.default_rng(seed)
+    args, T = _planar_case(rng, int(rng.integers(2, 40)), n_real, dtype)
+    out = fp.planar_sums_plain(*args).double().numpy()
+    want = _sums_kabsch_f64(*args)
+    np.testing.assert_allclose(out[:3] / T, want[:3] / T, rtol=0,
+                               atol=5e-4)
+    np.testing.assert_allclose(out[3:] - out[:3] ** 2 / T,
+                               want[3:] - want[:3] ** 2 / T, rtol=0,
+                               atol=5e-3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16", "int8"])
+def test_two_atom_rotation_departs_from_the_tpu_kernel(dtype):
+    """The TPU kernel (``pallas_fused``'s planar kernel in interpret
+    mode) on the two-atom cases that the plain version passes above: its
+    float32 QCP misses the float64 SVD Kabsch beyond the same
+    tolerances at one of the two seeds at least (ROADMAP §C, C5).  Here
+    the port departs from its reference by design."""
+    worst = 0.0
+    for seed in range(2):
+        args, T = _planar_case(np.random.default_rng(seed), 32, 2, dtype)
+        want = _sums_kabsch_f64(*args)
+        qp, inv, *rest = args
+        assert pf._resolve_planar("interpret", qp.shape[1], qp.shape[2],
+                                  dtype)[0] == "interpret"
+        _, sum_d, sumsq = pf._core_planar(
+            "interpret", jnp.asarray(qp.numpy()), inv,
+            *(jnp.asarray(a.numpy()) for a in rest))
+        got = np.concatenate([np.asarray(sum_d).T,
+                              np.asarray(sumsq).T]).astype(np.float64)
+        worst = max(worst,
+                    np.abs(got[:3] / T - want[:3] / T).max() / 5e-4,
+                    np.abs((got[3:] - got[:3] ** 2 / T)
+                           - (want[3:] - want[:3] ** 2 / T)).max() / 5e-3)
+    assert worst > 1.0
