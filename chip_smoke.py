@@ -47,7 +47,12 @@ prints no ok line):
    (``queued_ms``: calls queued behind a sleep, CUDA events around each),
    the wrapper's host wall per call (``call_ms``), the plain version's
    time, the bound, the launches and the largest raw difference of the
-   (6, S) sums.
+   (6, S) sums.  Then the kernel's wide mode (a selection beyond the
+   single-read form's shared-memory limit) at B = 512, S = 1,048,576 for
+   each dtype, made on the card with a per-frame scale: the same checks
+   and timings, the plain version run over 64-frame chunks summed in
+   float64 (the whole block's float32 temporaries would not fit), and
+   the bound, which stays one read of the block.
 4. End to end at full width: 100,000 atoms (built like bench.py's
    make_system from seed 0), the ``heavy`` selection (50,000 atoms),
    2,048 frames in a MemoryReader, ``batch_size=512``, int16 staging,
@@ -424,21 +429,24 @@ prints no ok line):
    at the registered programs' small size, so they are printed on a
    line of their own and counted nowhere.  Prints each part's wall
    beside the card.
-18. Fuzz (last; needs no other phase).  (a) Both hand kernels at random
+18. Fuzz (needs no other phase).  (a) Both hand kernels at random
    geometries from a seeded ``numpy.random.Generator`` (the seed is
    printed) against their plain versions on the card.  The fused kernel:
    8 forced corners (one frame; each dtype's largest frame group; a
    shorter last slice; S at the shared-memory limit of each dtype, where
-   two stages remain) and 48 draws of B in [1, 600] frames and 1-70,000
+   two stages remain), 48 draws of B in [1, 600] frames and 1-70,000
    atoms padded by ``pad_selection`` (B·S at most the main shape's),
    int16, int8 or float32, a scalar or per-frame inverse scale, a random
-   frame-mask tail and random holes in the atom mask, each within
+   frame-mask tail and random holes in the atom mask, then 3 more forced
+   corners, the first wide S of each dtype (one padding granule above
+   its single-read limit), each within
    ``tests/test_torch_cuda.py::_assert_moments_close``'s tolerances
    (mean 5e-4, M2 5e-3); the distinct ``fused_geometry`` tuples reached
    are printed, and the phase fails unless they include group 1, each
-   dtype's largest group, stages 2 and ``MAX_STAGES`` and a shorter
-   last slice.  The pair histogram: 32 draws of B in [1, 8], N and M in
-   [1, 5,000] (every fourth case ``a is b``, mostly with
+   dtype's largest group, stages 2 and ``MAX_STAGES``, a shorter last
+   slice and each dtype's wide mode.  The pair histogram: 32 draws of B
+   in [1, 8], N and M in [1, 5,000] (every fourth case ``a is b``,
+   mostly with
    ``exclude_self``), orthorhombic boxes with lengths of 8-60 Å, an axis
    of length 0 (no PBC on it) a fifth of the time and no box a tenth,
    half the cases with coordinates shifted whole box lengths outside
@@ -457,6 +465,17 @@ prints no ok line):
    max |d g(r)| < 0.05 of serial, phase 5's bound).  Its launches of
    both kernels are printed on a line of their own (above 0) and count
    on no main path.  Prints the phase's wall.
+19. A wide selection (before 18; needs no other phase): phase 4's system
+   built at 1,400,000 atoms and 128 frames, whose 700,000 heavy atoms
+   (S = 700,160) lie beyond every dtype's single-read limit, so the
+   fused kernel runs its wide mode.  ``AlignedRMSF(engine='fused')``,
+   batch 64, with int16, int8 and delta staging, each against
+   ``engine=None`` on the same wire (5e-4 Å; delta 5e-3 Å); int16 over
+   32 frames against the serial float64 oracle on its int16 wire
+   coordinates (1e-3 Å); a repeat of the int16 run bit-identical; and
+   ``mdtpu_fused_fallbacks_total`` 0.  Prints each run's wall and
+   frames/s; its launches are printed on a line of their own and count
+   on no main path.
 
 Phase 3 also holds the pair-histogram kernel (``ops/fused_distances.
 pair_histogram``, ``csrc/pair_histogram.cu``) against
@@ -513,6 +532,21 @@ FLOPS_PER_FRAME = 1000
 E2E_ATOMS = 100_000
 E2E_FRAMES = 2048
 E2E_BATCH = 512
+
+# Phase 3's wide rows: the fused kernel's wide mode at a million atoms
+# (past every dtype's single-read limit), the main path's batch; the
+# plain version runs over frame chunks of WIDE_PLAIN_FRAMES.
+WIDE_B = 512
+WIDE_S = 1_048_576
+WIDE_PLAIN_FRAMES = 64
+# Phase 19: phase 4's system at 1.4M atoms, whose 700,000 heavy atoms
+# (S = 700,160) pass every dtype's single-read limit; 128 frames, batch
+# 64 (two blocks a pass), 32 frames held to the serial oracle.
+WIDE_ATOMS = 1_400_000
+WIDE_FRAMES = 128
+WIDE_BATCH = 64
+WIDE_ORACLE = 32
+WIDE_DEVICE = "cuda"
 
 KERNEL_NAME = "fused_aligned_moments"
 KERNEL_SYMBOL = "fused_planar_kernel"      # its CUDA kernel's name
@@ -623,7 +657,7 @@ VACF_FLOOR = 1e-2                    # lags held to it: |C| >= this x C(0)
 CLI_TOL = 1e-5
 # every phase, in the order they run
 PHASE_ORDER = (1, 2, 3, 4, 8, 14, 5, 15, 16, 6, 9, 10, 12, 13, 17, 7,
-               11, 18)
+               11, 19, 18)
 
 
 class SmokeFailure(Exception):
@@ -874,6 +908,127 @@ def bound_ms(args, bw, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def make_wide_case(B, S, dtype, seed, step=64):
+    """A case of S real atoms made on the card (a wide selection is slow
+    to make on the host): a centred reference of coordinate scale 20 Å,
+    each frame a rigid rotation + translation of it plus 0.3 Å noise, as
+    in :func:`make_case`, staged ``step`` frames at a time with a
+    per-frame scale → the wrapper's arguments (every frame valid)."""
+    import torch
+
+    from mdanalysis_mpi_tpu_torch.ops import fused_rmsf as fr
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ref = 20.0 * torch.randn((S, 3), generator=g, device=dev)
+    masses = rng.uniform(1, 16, size=S)
+    w = torch.from_numpy(masses / masses.sum()).to(dev, torch.float32)
+    com = (ref * w[:, None]).sum(0)
+    wN, refc_p, _, amask, sref = fr.build_params(ref - com, com, masses,
+                                                 S, S)
+    rots = torch.from_numpy(_rotations(rng, B).astype(np.float32)).to(dev)
+    qp = torch.empty((3, B, S), dtype=getattr(torch, dtype), device=dev)
+    inv = torch.ones(B, device=dev)
+    for f0 in range(0, B, step):
+        f1 = min(B, f0 + step)
+        x = torch.einsum("ni,bji->bnj", ref, rots[f0:f1])
+        x += 10.0 * torch.randn((f1 - f0, 1, 3), generator=g, device=dev)
+        x += 0.3 * torch.randn(x.shape, generator=g, device=dev)
+        planes = x.permute(2, 0, 1)
+        if dtype == "float32":
+            qp[:, f0:f1] = planes
+        else:
+            top = 32767.0 if dtype == "int16" else 127.0
+            inv[f0:f1] = planes.abs().amax(dim=(0, 2)) / top
+            qp[:, f0:f1] = torch.round(
+                planes / inv[None, f0:f1, None]).to(qp.dtype)
+        del x, planes
+    return qp, inv, wN, refc_p, amask, sref, torch.ones(B, device=dev)
+
+
+def plain_by_frames(args, step=WIDE_PLAIN_FRAMES):
+    """The plain version over frame chunks, summed in float64: the same
+    function where the whole block's float32 temporaries would not fit
+    on the card."""
+    from mdanalysis_mpi_tpu_torch.ops import fused_planar as fp
+
+    qp, inv, wN, refc_p, amask, sref, fmask = args
+    total = 0.0
+    for f0 in range(0, qp.shape[1], step):
+        total = total + fp.planar_sums_plain(
+            qp[:, f0:f0 + step], inv[f0:f0 + step], wN, refc_p, amask,
+            sref, fmask[f0:f0 + step]).double()
+    return total.float()
+
+
+def check_moments(name, out1, out2, plain, T):
+    """The kernel's sums against the plain version's (mean within 5e-4,
+    M2 within 5e-3) and two launches bit-identical → (largest raw
+    difference, mean error, M2 error)."""
+    import torch
+
+    check(torch.isfinite(out1).all().item(), f"{name}: non-finite output")
+    check(torch.equal(out1, out2),
+          f"{name}: two launches differ (not deterministic)")
+    raw = (out1 - plain).abs().max().item()
+    mean_err = ((out1[:3] - plain[:3]) / T).abs().max().item()
+    m2 = out1[3:] - out1[:3] ** 2 / T
+    m2_plain = plain[3:] - plain[:3] ** 2 / T
+    m2_err = (m2 - m2_plain).abs().max().item()
+    check(mean_err <= 5e-4, f"{name}: mean differs by {mean_err:.3g}")
+    check(m2_err <= 5e-3, f"{name}: M2 differs by {m2_err:.3g}")
+    return raw, mean_err, m2_err
+
+
+def phase_wide_kernels(card_name, rows):
+    """Phase 3, the fused kernel's wide mode at B = 512, S = 1,048,576
+    for each dtype: each row into ``rows`` → the largest raw
+    difference."""
+    import torch
+
+    from mdanalysis_mpi_tpu_torch.ops import fused_planar as fp
+
+    bw, flops = card_rates(card_name)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    worst = 0.0
+    for dtype, itemsize in (("int16", 2), ("int8", 1), ("float32", 4)):
+        name = f"wide-{dtype}"
+        geometry = fp.fused_geometry(WIDE_B, WIDE_S, itemsize, sms)
+        check(len(geometry) == 5, f"{name}: geometry {geometry} is not the "
+              "wide mode's")
+        args = make_wide_case(WIDE_B, WIDE_S, dtype, seed=WIDE_S + itemsize)
+        l0 = fp.planar_sums.launches
+        out1 = fp.planar_sums(*args)
+        out2 = fp.planar_sums(*args)
+        plain = plain_by_frames(args)
+        torch.cuda.synchronize()
+        launches = fp.planar_sums.launches - l0
+        check(launches == 2, f"{name}: {launches} launches for 2 calls")
+        raw, mean_err, m2_err = check_moments(name, out1, out2, plain,
+                                              float(WIDE_B))
+        split, q_ms, gap, c_ms = fused_timing(args)
+        check(KERNEL_SYMBOL in split, f"{name}: no {KERNEL_SYMBOL} kernel "
+              f"event in the profile ({sorted(split)})")
+        k_ms = split[KERNEL_SYMBOL][0]
+        p_ms = time_ms(lambda: plain_by_frames(args), 3)
+        b_ms, b_by = bound_ms(args, bw, flops)
+        worst = max(worst, raw)
+        rows[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                          bound_by=b_by, max_abs_err=raw)
+        print(f"kernel {name}: B={WIDE_B} S={WIDE_S} {dtype} geometry "
+              f"{geometry} kernel_ms={k_ms:.4f} queued_ms={q_ms:.4f} "
+              f"(gap {gap:.4f}) call_ms={c_ms:.4f} plain_ms={p_ms:.4f} "
+              f"(64-frame chunks, float64 sums) bound_ms={b_ms:.4f} "
+              f"({b_by}, one read) kernel/bound={k_ms / b_ms:.2f} "
+              f"launches={launches} raw_max_abs={raw:.3g} "
+              f"mean_err={mean_err:.3g} m2_err={m2_err:.3g} "
+              f"bit_identical=True; device ms (events): {split_text(split)}")
+        del args, out1, out2, plain
+        torch.cuda.empty_cache()
+    return worst
+
+
 def phase_kernels(card_name):
     import torch
 
@@ -902,17 +1057,8 @@ def phase_kernels(card_name):
         torch.cuda.synchronize()
         plain = fp.planar_sums_plain(*args)
         torch.cuda.synchronize()
-        check(torch.isfinite(out1).all().item(), f"{name}: non-finite output")
-        check(torch.equal(out1, out2),
-              f"{name}: two launches differ (not deterministic)")
-        T = args[6].sum()
-        raw = (out1 - plain).abs().max().item()
-        mean_err = ((out1[:3] - plain[:3]) / T).abs().max().item()
-        m2 = out1[3:] - out1[:3] ** 2 / T
-        m2_plain = plain[3:] - plain[:3] ** 2 / T
-        m2_err = (m2 - m2_plain).abs().max().item()
-        check(mean_err <= 5e-4, f"{name}: mean differs by {mean_err:.3g}")
-        check(m2_err <= 5e-3, f"{name}: M2 differs by {m2_err:.3g}")
+        raw, mean_err, m2_err = check_moments(name, out1, out2, plain,
+                                              args[6].sum())
         launches = fp.planar_sums.launches - l0
         split, q_ms, gap, c_ms = fused_timing(args)
         check(KERNEL_SYMBOL in split, f"{name}: no {KERNEL_SYMBOL} kernel "
@@ -1160,16 +1306,16 @@ def heavy_universe(coords):
 
 
 def wire_frames(u, sel_p, n_sel, n_frames, bs, wire):
-    """The first ``n_frames`` frames of the selection as the int8 or
-    delta wire delivers them to the device (the executor's staging:
+    """The first ``n_frames`` frames of the selection as the int16, int8
+    or delta wire delivers them to the device (the executor's staging:
     one block padded to ``bs`` frames)."""
     from mdanalysis_mpi_tpu_torch.parallel.partition import pad_batch
     from mdanalysis_mpi_tpu_torch.staging import (quantize_block,
                                                   quantize_block_delta)
 
     block, _ = u.trajectory.read_block(0, n_frames, sel=sel_p)
-    if wire == "int8":
-        q, inv = quantize_block(block, "int8")
+    if wire in ("int16", "int8"):
+        q, inv = quantize_block(block, wire)
         x = q.astype(np.float32) * inv
     else:
         padded, _ = pad_batch(block, bs)
@@ -4921,7 +5067,7 @@ def phase_lint(card, u, ow):
 # ---------------------------------------------------------------- phase 18
 
 FUZZ_SEED = 18
-FUZZ_FUSED_CASES = 48               # drawn cases (the forced ones add 8)
+FUZZ_FUSED_CASES = 48               # drawn cases (the forced ones add 11)
 FUZZ_PH_CASES = 32
 FUZZ_GRAPH_EVERY = 3                # every third case also as a graph
 FUZZ_MAX_ELEMS = 512 * 50176        # B·S of a drawn case: the main shape
@@ -5015,7 +5161,10 @@ def fuzz_planes(rng, B, n_real, dtype, per_frame, dev):
 def fuzz_fused_draws(rng, sms):
     """(B, n_real, dtype, per_frame) of phase 18's fused cases: the
     forced corners (group 1, each dtype's largest group, a shorter last
-    slice, S at the shared-memory limit: two stages), then the draws."""
+    slice, S at the shared-memory limit: two stages), the draws, then
+    the first wide S of each dtype (after the draws, and from no draw of
+    ``rng``, so the cases before them stay those of a seed's earlier
+    runs)."""
     from mdanalysis_mpi_tpu_torch.ops import fused_planar as fp
 
     cases = [(1, 300, "int16", False), (40, 900, "int8", True),
@@ -5032,6 +5181,10 @@ def fuzz_fused_draws(rng, sms):
             continue
         cases.append((B, n_real, str(rng.choice(list(FUZZ_DTYPES))),
                       bool(rng.random() < 0.5)))
+    # the wide mode's first S: a group and one frame more (float32: 3)
+    for (dtype, itemsize), B in zip(FUZZ_DTYPES.items(), (13, 25, 3)):
+        cases.append((B, fp.fused_max_atoms(itemsize, sms) + 1 + B, dtype,
+                      B != 3))
     return cases
 
 
@@ -5080,9 +5233,9 @@ def fuzz_geometry_reached(seen, sms):
 
     geoms = sorted({g[2:] for g in seen})
     print(f"fuzz fused geometries reached ({len(geoms)} distinct "
-          f"(slice, blocks, group, stages) on {sms} SMs): "
+          f"(slice, blocks, group, stages[, chunk]) on {sms} SMs): "
           + " ".join(f"({','.join(map(str, g))})" for g in geoms))
-    # each entry: (dtype, S, slice, blocks, group, stages)
+    # each entry: (dtype, S, slice, blocks, group, stages[, chunk])
     groups = {(e[0], e[4]) for e in seen}
     stages = {e[5] for e in seen}
     shorter = [e for e in seen if e[2] * e[3] > e[1]]
@@ -5093,6 +5246,9 @@ def fuzz_geometry_reached(seen, sms):
     need += [("stages 2", 2 in stages),
              (f"stages {fp.MAX_STAGES}", fp.MAX_STAGES in stages),
              ("a shorter last slice", bool(shorter))]
+    for dtype in FUZZ_DTYPES:
+        need.append((f"{dtype}'s wide mode",
+                     any(e[0] == dtype and len(e) == 7 for e in seen)))
     missing = [name for name, ok in need if not ok]
     check(not missing, f"fuzz fused sweep missed {missing}")
     print("fuzz fused corners reached: " + ", ".join(n for n, _ in need))
@@ -5291,6 +5447,86 @@ def phase_fuzz(card, device=None):
     return c_fused, c_ph
 
 
+# ---------------------------------------------------------------- phase 19
+
+def phase_wide(card):
+    """Phase 19: AlignedRMSF(engine='fused') of a selection beyond every
+    dtype's single-read limit (the kernel's wide mode) → its fused
+    launches, which count on no main path."""
+    import torch
+
+    from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
+    from mdanalysis_mpi_tpu_torch.ops import fused_planar as fp
+    from mdanalysis_mpi_tpu_torch.ops.fused_rmsf import pad_selection
+
+    t0 = time.perf_counter()
+    u = make_system(WIDE_ATOMS, WIDE_FRAMES, seed=0)
+    idx = u.select_atoms("heavy").indices
+    sel_p = pad_selection(idx)[0]
+    S = len(sel_p)
+    sms = sm_count(WIDE_DEVICE)
+    limits = {i: fp.fused_max_atoms(i, sms) for i in (1, 2, 4)}
+    check(S > max(limits.values()), f"S = {S} within a single-read limit "
+          f"{limits}")
+    print(f"wide: system {WIDE_ATOMS} atoms x {WIDE_FRAMES} frames, "
+          f"selection {len(idx)} atoms (S={S}; single-read limits "
+          f"{limits[2]} / {limits[1]} / {limits[4]} int16 / int8 / float32 "
+          f"on {sms} SMs; geometry int16 "
+          f"{fp.fused_geometry(WIDE_BATCH, S, 2, sms)}), built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    run_kw = dict(backend="torch", batch_size=WIDE_BATCH, device=WIDE_DEVICE)
+    falls = metric("mdtpu_fused_fallbacks_total")
+    torch.cuda.synchronize()
+    fp.planar_sums.launches = 0
+    fused = {}
+    for wire, tol in (("int16", 5e-4), ("int8", 5e-4), ("delta", 5e-3)):
+        t1 = time.perf_counter()
+        r = AlignedRMSF(u, select="heavy", engine="fused").run(
+            transfer_dtype=wire, **run_kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        fused[wire] = r.results.rmsf
+        check(fused[wire].shape == (len(idx),)
+              and np.isfinite(fused[wire]).all(),
+              f"wide {wire}: RMSF shape {fused[wire].shape} / non-finite")
+        g = AlignedRMSF(u, select="heavy").run(transfer_dtype=wire,
+                                               **run_kw)
+        err = float(np.abs(fused[wire] - g.results.rmsf).max())
+        print(f"wide {wire}: AlignedRMSF(engine='fused') B={WIDE_BATCH}: "
+              f"wall {wall:.3f} s, {WIDE_FRAMES / wall:.1f} frames/s (both "
+              f"passes, host staging included); fused vs engine=None "
+              f"{err:.3g} (limit {tol:g}) on {card}")
+        check(err <= tol, f"wide {wire}: fused vs generic differ by "
+              f"{err:.3g}")
+    u.trajectory.__dict__.pop("_quant_max_hints", None)
+    again = AlignedRMSF(u, select="heavy", engine="fused").run(
+        transfer_dtype="int16", **run_kw)
+    check(np.array_equal(again.results.rmsf, fused["int16"]),
+          "wide int16: a repeat is not bit-identical")
+    # with no scale hint the first block's int16 scale is its own
+    # maximum's, the wire coordinates wire_frames rebuilds
+    u.trajectory.__dict__.pop("_quant_max_hints", None)
+    f_32 = AlignedRMSF(u, select="heavy", engine="fused").run(
+        stop=WIDE_ORACLE, transfer_dtype="int16", **run_kw)
+    torch.cuda.synchronize()
+    launches = fp.planar_sums.launches
+    u_wire = heavy_universe(wire_frames(u, sel_p, len(idx), WIDE_ORACLE,
+                                        WIDE_BATCH, "int16"))
+    oracle = AlignedRMSF(u_wire, select="heavy").run(backend="serial")
+    err = float(np.abs(f_32.results.rmsf - oracle.results.rmsf).max())
+    print(f"wide int16: repeat bit-identical; fused vs serial f64 oracle "
+          f"on the int16 coordinates ({WIDE_ORACLE} frames) {err:.3g} "
+          f"(limit 1e-3)")
+    check(err <= 1e-3, f"wide int16: fused vs oracle differ by {err:.3g}")
+    falls = metric("mdtpu_fused_fallbacks_total") - falls
+    check(falls == 0 and launches > 0,
+          f"wide: {falls} fused fallbacks, {launches} kernel launches")
+    print(f"wide phase: {time.perf_counter() - t0:.1f} s, "
+          f"mdtpu_fused_fallbacks_total +{falls:g}, {KERNEL_NAME} launches "
+          f"{launches}")
+    return launches
+
+
 #: phases that run on the water box built once for them
 WATER_PHASES = {3, 5, 10, 12, 13, 14, 15, 16, 17}
 #: phases that launch each kernel on its main path (phase 16's fused
@@ -5371,7 +5607,7 @@ def main(argv=None):
         print(f"phases: {sorted(phases)} of {list(PHASE_ORDER)} (in the "
               f"order {[p for p in PHASE_ORDER if p in phases]})")
     launches = ph_launches = 0
-    fleet_launches = None
+    fleet_launches = wide_launches = None
     rows = ph_rows = None
     try:
         card = phase_device()
@@ -5385,6 +5621,7 @@ def main(argv=None):
                   f"frames, built in {time.perf_counter() - t0:.1f} s")
         if 3 in phases:
             rows, worst = phase_kernels(card_name)
+            worst = max(worst, phase_wide_kernels(card_name, rows))
             ph_rows, ph_worst = phase_pair_histogram(card_name, ow)
         if 4 in phases:
             launches, u_e2e, rmsf_e2e = phase_end_to_end(card)
@@ -5425,6 +5662,8 @@ def main(argv=None):
             phase_configs(card)
         if 11 in phases:
             phase_neighbours(card)
+        if 19 in phases:
+            wide_launches = phase_wide(card)
         if 18 in phases:
             phase_fuzz(card)
     except SmokeFailure as exc:
@@ -5445,6 +5684,9 @@ def main(argv=None):
               f"(their federated mdtpu_fused_blocks_total), "
               f"{launches - fleet_launches} in this process")
 
+    if wide_launches is not None:
+        print(f"{KERNEL_NAME} launches in phase 19 (the wide mode; not on "
+              f"the main path, not in the kernel table): {wide_launches}")
     if rows is None:
         print("kernel table: not printed (phase 3, which measures the "
               "kernels against their plain versions, was not selected)")

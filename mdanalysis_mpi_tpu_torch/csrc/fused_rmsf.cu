@@ -67,10 +67,32 @@
 // 3*12*384*2 = 27,648 B), int8 G = 24 and float32 G = 6 (the same
 // bytes); 7 stages; 40 B an atom of parameters and accumulators: 212,480
 // B of the 232,448 a block may use (int16).  Partials (B, 12, blocks):
-// 3.2 MB, resident in L2.  Where even one frame a group in two stages
-// does not fit (a slice above 4,448 atoms at int16, 5,024 at int8, 3,616
-// at float32: S above 587,008 / 663,040 / 477,184 atoms on 132 SMs) the
-// wrapper raises.
+// 3.2 MB, resident in L2.
+//
+// Wide mode.  Where even one frame a group in two stages does not fit a
+// slice (above 4,448 atoms at int16, 5,024 at int8, 3,616 at float32: S
+// above 587,008 / 663,040 / 477,184 atoms on 132 SMs), the wrapper passes
+// a chunk (at most 768 atoms, a multiple of 16) and the same launch reads
+// the block twice, a chunk of the slice at a time through the same ring,
+// with no per-atom area in shared memory.  The solver and the rotations
+// warp are unchanged; the 12 compute warps take both roles in turn:
+//   - pass A, units (group g, chunk c) in the order g, then c: warp w
+//     takes frames w and w + 12 of the group, w and ref from global
+//     memory (L1, 16-byte loads), and carries their 12 sums in
+//     registers over the slice's chunks; after the last it publishes
+//     them as above.
+//   - pass B, units (chunk c, group g) in the order c, then g: thread t
+//     takes atoms 2t and 2t + 1 of the chunk and carries their moments in
+//     registers over the groups, whose records the rotations warp loads
+//     once a chunk; after the last group it writes the chunk's (6, chunk)
+//     output, amask applied.
+// Every sum keeps a fixed order (per atom: frames 0..B-1; per frame: the
+// chunks in order, then the blocks), so the wide output is bit-identical
+// from run to run too.  The function's bound stays one read of the
+// block; the wide mode reads it twice.  ops/fused_planar.fused_geometry
+// sizes the chunk so that four stages fit (int16 group 12 and int8 group
+// 24: 72 B an atom a stage; float32 group 12: 144 B): S = 1,048,576 on
+// 132 SMs gives slices of 7,952 atoms in chunks of 736 (float32 384).
 //
 // Measured (chip_smoke.py phase 3, NVIDIA H100 80GB HBM3 at 700.00 W):
 // main shape, the median of 20 torch.profiler kernel events, 20 of 20
@@ -82,7 +104,9 @@
 // a stage returns to the loader only after its group's rotations are
 // in, and that cycle (copy, sums, the exchange, QCP ~5 us a frame on one
 // thread, the exchange back, moments) takes ~20 us while the ring holds
-// ~84 frames.
+// ~84 frames.  The wide mode at B = 512, S = 1,048,576 (phase 3's wide
+// rows, same card): int16 3.580 ms, int8 2.497, float32 5.145, against
+// one read's bound of 0.975 / 0.505 (operations) / 1.937 ms.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -111,6 +135,8 @@ constexpr int kNewtonIters = 40;
 constexpr int kRot = 16;          // per frame: R (9), com (3), scale, fmask
 constexpr int kMaxGroup = 24;
 constexpr int kMaxStages = 12;
+// wide mode: two atoms a compute thread a chunk
+constexpr int kWideChunk = 2 * kComputeThreads;
 constexpr int kMaxBlocks = 160;
 constexpr int kSmemMax = 232448;
 constexpr unsigned kFull = 0xffffffffu;
@@ -132,6 +158,7 @@ struct Args {
   const float* fmask;
   const float* sref;
   int slice, blocks, group, stages;
+  int chunk;          // wide mode: atoms a chunk (0: the single-read form)
   float* part;        // (B, 12, blocks), kUnset on entry
   float* rot;         // (B, kRot), kUnset on entry
   float* out;         // (6, S)
@@ -151,6 +178,14 @@ __host__ __device__ inline long long smem_bytes(int slice, int group,
                                                 int stages, int elem) {
   return fixed_bytes(group) + 40LL * slice +
          static_cast<long long>(stages) * 3 * group * slice * elem;
+}
+
+// The wide mode's layout: the same header, then the ring of stages, each
+// (3, G, chunk) of T.
+__host__ __device__ inline long long wide_smem_bytes(int chunk, int group,
+                                                     int stages, int elem) {
+  return fixed_bytes(group) +
+         static_cast<long long>(stages) * 3 * group * chunk * elem;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -505,8 +540,281 @@ __device__ __forceinline__ void warp_arrive(uint64_t* bar, int lane) {
                  : "memory");
 }
 
-// The kernel; its warps' roles are described at the top of the file.
+// A group's frame records (gf frames of kRot floats at src; 14 used of
+// 16) into shared memory at dst, every field of every frame in one pass,
+// polled value by value until none is unset.
+__device__ __forceinline__ void load_records(const float* src, float* dst,
+                                             int gf, int lane) {
+  const long long t0 = clock64();
+  constexpr int kPer = kMaxGroup * kRot / 32;
+  float v[kPer];
+  for (;;) {
+    bool miss = false;
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int i = lane + 32 * r;
+      const bool used = i < gf * kRot && (i & (kRot - 1)) < 14;
+      v[r] = used ? ld_relaxed(src + i) : 0.0f;
+      miss |= used && unset(v[r]);
+    }
+    if (!__any_sync(kFull, miss)) break;
+    poll_pause(t0);
+  }
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) {
+    const int i = lane + 32 * r;
+    if (i < gf * kRot) dst[i] = v[r];
+  }
+}
+
+// The moments of two atoms over the gf frames of a group in a stage: x0
+// is the atoms' first component in frame 0, rows of `row` elements, G
+// frames a component; fr4 the group's records (R, com, scale, fmask).
 template <typename T>
+__device__ __forceinline__ void add_frames(const float4* fr4, const T* x0,
+                                           int gf, int G, int row,
+                                           const float r[2][3],
+                                           float sd[2][3], float sq[2][3]) {
+#pragma unroll 2
+  for (int f = 0; f < gf; ++f) {
+    const float4 A = fr4[f * 4];        // R00 R01 R02 R10
+    const float4 Bq = fr4[f * 4 + 1];   // R11 R12 R20 R21
+    const float4 C = fr4[f * 4 + 2];    // R22 com0 com1 com2
+    const float4 D = fr4[f * 4 + 3];    // scale fmask
+    const T* xf = x0 + static_cast<size_t>(f) * row;
+    float q0[2], q1[2], q2[2];
+    load2(xf, q0);
+    load2(xf + static_cast<size_t>(G) * row, q1);
+    load2(xf + static_cast<size_t>(2 * G) * row, q2);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float xc0 = fmaf(q0[e], D.x, -C.y);
+      const float xc1 = fmaf(q1[e], D.x, -C.z);
+      const float xc2 = fmaf(q2[e], D.x, -C.w);
+      // (xc @ R)_j - ref_j, the reference folded into the chain
+      const float dev0 =
+          fmaf(xc2, Bq.z, fmaf(xc1, A.w, fmaf(xc0, A.x, -r[e][0])));
+      const float dev1 =
+          fmaf(xc2, Bq.w, fmaf(xc1, Bq.x, fmaf(xc0, A.y, -r[e][1])));
+      const float dev2 =
+          fmaf(xc2, C.x, fmaf(xc1, Bq.y, fmaf(xc0, A.z, -r[e][2])));
+      const float dm0 = dev0 * D.y;
+      const float dm1 = dev1 * D.y;
+      const float dm2 = dev2 * D.y;
+      sd[e][0] += dm0;
+      sd[e][1] += dm1;
+      sd[e][2] += dm2;
+      sq[e][0] += dm0 * dev0;
+      sq[e][1] += dm1 * dev1;
+      sq[e][2] += dm2 * dev2;
+    }
+  }
+}
+
+// ---- the wide mode (see the header)
+
+// Unit u of a block whose slice has nck chunks, for ng groups: pass A's
+// units (g, c) in the order g, then c; then pass B's in the order c, g.
+__device__ __forceinline__ void wide_unit(int u, int ng, int nck, int& g,
+                                          int& c) {
+  const int na = ng * nck;
+  if (u < na) {
+    g = u / nck;
+    c = u - g * nck;
+  } else {
+    c = (u - na) / ng;
+    g = (u - na) - c * ng;
+  }
+}
+
+// The loader warp: unit u's rows (3*gf rows of the chunk's atoms) into
+// its stage, one bulk copy per row.
+template <typename T>
+__device__ __forceinline__ void wide_copy(const Args& a, T* ring,
+                                          uint64_t* full, int u, int ng,
+                                          int nck, int s0, int ns,
+                                          int lane) {
+  int g, c;
+  wide_unit(u, ng, nck, g, c);
+  const int G = a.group;
+  const int stage = u % a.stages;
+  const int f0 = g * G;
+  const int gf = min(G, a.B - f0);
+  const int c0 = c * a.chunk;
+  const uint32_t bytes =
+      static_cast<uint32_t>(min(a.chunk, ns - c0)) * sizeof(T);
+  T* base = ring + static_cast<size_t>(stage) * 3 * G * a.chunk;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if (lane == 0) mbar_expect_tx(&full[stage], 3u * gf * bytes);
+  __syncwarp();
+  const T* qp = static_cast<const T*>(a.qp);
+  for (int k = lane; k < 3 * gf; k += 32) {
+    const int comp = k / gf;
+    const int f = k - comp * gf;
+    const T* src =
+        qp + (static_cast<size_t>(comp) * a.B + f0 + f) * a.S + s0 + c0;
+    bulk_copy(base + (static_cast<size_t>(comp) * G + f) * a.chunk, src,
+              bytes, &full[stage]);
+  }
+}
+
+template <typename T>
+__device__ void wide_loader(const Args& a, T* ring, uint64_t* full,
+                            uint64_t* empty, int ng, int nck, int s0, int ns,
+                            int lane) {
+  const int nu = 2 * ng * nck;
+  const int nst = a.stages;
+  for (int u = 0; u < min(nst, nu); ++u)
+    wide_copy(a, ring, full, u, ng, nck, s0, ns, lane);
+  for (int u = nst; u < nu; ++u) {
+    mbar_wait(&empty[u % nst], ((u - nst) / nst) & 1);
+    wide_copy(a, ring, full, u, ng, nck, s0, ns, lane);
+  }
+}
+
+// The rotations warp: for each of pass B's units (chunk c, group g), the
+// group's records into the next of the four buffers.
+__device__ void wide_rotations(const Args& a, float* frot, uint64_t* rfull,
+                               uint64_t* rempty, int ng, int nck, int lane) {
+  const int G = a.group;
+  for (int v = 0; v < nck * ng; ++v) {
+    const int g = v % ng;
+    const int rb = v % kRotBuffers;
+    if (v >= kRotBuffers)
+      mbar_wait(&rempty[rb], ((v - kRotBuffers) / kRotBuffers) & 1);
+    load_records(a.rot + static_cast<size_t>(g) * G * kRot,
+                 frot + rb * G * kRot, min(G, a.B - g * G), lane);
+    warp_arrive(&rfull[rb], lane);
+  }
+}
+
+// The 12 compute warps (w = warp - 1): pass A, then pass B.
+template <typename T>
+__device__ void wide_compute(const Args& a, const T* ring, const float* frot,
+                             uint64_t* full, uint64_t* empty, uint64_t* rfull,
+                             uint64_t* rempty, volatile int* sprog, int ng,
+                             int nck, int s0, int ns, int warp, int lane) {
+  const int G = a.group;
+  const int ck = a.chunk;
+  const int nst = a.stages;
+  const int nblk = a.blocks;
+  const int w = warp - kFirstSumWarp;
+  const size_t plane = static_cast<size_t>(G) * ck;
+  const int na = ng * nck;
+
+  // ---- pass A: frames fa and fb of each group, their sums carried over
+  // the chunks and published after the last
+  const int fa = w, fb = w + kComputeWarps;
+  float sa[12], sb[12];
+  for (int u = 0; u < na; ++u) {
+    const int g = u / nck;
+    const int c = u - g * nck;
+    const int stage = u % nst;
+    mbar_wait(&full[stage], (u / nst) & 1);
+    const int gf = min(G, a.B - g * G);
+    if (c == 0) {
+#pragma unroll
+      for (int k = 0; k < 12; ++k) {
+        sa[k] = 0.0f;
+        sb[k] = 0.0f;
+      }
+    }
+    const int c0 = c * ck;
+    const int nch = min(ck, ns - c0) / 4;
+    const T* base = ring + static_cast<size_t>(stage) * 3 * plane;
+    if (fa < gf) {
+      const bool two = fb < gf;
+      const T* xa = base + static_cast<size_t>(fa) * ck;
+      const T* xb = base + static_cast<size_t>(two ? fb : fa) * ck;
+      for (int j = lane; j < nch; j += 32) {
+        // w and ref of atoms s..s+3 in four 16-byte loads (s % 4 == 0;
+        // the wrapper requires w and ref 16-byte aligned): ref's 12
+        // interleaved floats de-interleaved in registers
+        const size_t s = static_cast<size_t>(s0) + c0 + 4 * j;
+        const float4 wv = __ldg(reinterpret_cast<const float4*>(a.w + s));
+        const float4* rp = reinterpret_cast<const float4*>(a.ref + 3 * s);
+        const float4 r0 = __ldg(rp), r1 = __ldg(rp + 1), r2 = __ldg(rp + 2);
+        const float p[16] = {wv.x, wv.y, wv.z, wv.w,
+                             r0.x, r0.w, r1.z, r2.y,
+                             r0.y, r1.x, r1.w, r2.z,
+                             r0.z, r1.y, r2.x, r2.w};
+        chunk_sums(xa, xa + plane, xa + 2 * plane, j, p, sa);
+        if (two) chunk_sums(xb, xb + plane, xb + 2 * plane, j, p, sb);
+      }
+    }
+    warp_arrive(&empty[stage], lane);
+    if (c == nck - 1) {
+      const int k = (lane >> 1) & 15;
+      const bool writer = (lane & 1) == 0 && k < 12;
+      if (fa < gf) {
+        const float va = reduce12(sa, lane);
+        if (writer)
+          st_relaxed(a.part + ((static_cast<size_t>(g) * G + fa) * 12 + k) *
+                                  nblk + blockIdx.x,
+                     va);
+      }
+      if (fb < gf) {
+        const float vb = reduce12(sb, lane);
+        if (writer)
+          st_relaxed(a.part + ((static_cast<size_t>(g) * G + fb) * 12 + k) *
+                                  nblk + blockIdx.x,
+                     vb);
+      }
+      // the frame solver's hint reads the first kSumWarps warps
+      if (lane == 0 && w < kSumWarps) sprog[w] = g + 1;
+    }
+  }
+
+  // ---- pass B: atoms i and i + 1 of each chunk, their moments carried
+  // over the groups and written after the last
+  const int i = 2 * (threadIdx.x - kFirstSumWarp * 32);
+  float sd[2][3], sq[2][3], r[2][3];
+  for (int v = 0; v < nck * ng; ++v) {
+    const int c = v / ng;
+    const int g = v - c * ng;
+    const int u = na + v;
+    const int stage = u % nst;
+    const int rb = v % kRotBuffers;
+    const int c0 = c * ck;
+    const bool mine = i < min(ck, ns - c0);
+    const size_t s = static_cast<size_t>(s0) + c0 + i;
+    if (g == 0) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          sd[e][q] = 0.0f;
+          sq[e][q] = 0.0f;
+          r[e][q] = mine ? __ldg(a.ref + 3 * (s + e) + q) : 0.0f;
+        }
+      }
+    }
+    mbar_wait(&full[stage], (u / nst) & 1);
+    mbar_wait(&rfull[rb], (v / kRotBuffers) & 1);
+    if (mine)
+      add_frames(reinterpret_cast<const float4*>(frot + rb * G * kRot),
+                 ring + static_cast<size_t>(stage) * 3 * plane + i,
+                 min(G, a.B - g * G), G, ck, r, sd, sq);
+    warp_arrive(&empty[stage], lane);
+    warp_arrive(&rempty[rb], lane);
+    if (g == ng - 1 && mine) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float am = __ldg(a.amask + s + e);
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          a.out[q * static_cast<size_t>(a.S) + s + e] = sd[e][q] * am;
+          a.out[(3 + q) * static_cast<size_t>(a.S) + s + e] =
+              sq[e][q] * (am * am);
+        }
+      }
+    }
+  }
+}
+
+// The kernel; its warps' roles are described at the top of the file.
+// kWide selects the wide mode (a.chunk > 0).
+template <typename T, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_planar_kernel(const Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -523,7 +831,9 @@ fused_planar_kernel(const Args a) {
   float* frot = reinterpret_cast<float*>(smem + 512);   // 4 x G x kRot
   float* pw = reinterpret_cast<float*>(smem + fixed_bytes(G));
   float* acc = pw + 4 * slice;
-  T* ring = reinterpret_cast<T*>(acc + 6 * slice);
+  // the wide mode has no per-atom area: its ring follows the header
+  T* ring = kWide ? reinterpret_cast<T*>(pw)
+                  : reinterpret_cast<T*>(acc + 6 * slice);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -532,29 +842,51 @@ fused_planar_kernel(const Args a) {
   const int s0 = blk * slice;
   const int ns = min(slice, a.S - s0);
   const int ng = (a.B + G - 1) / G;
+  // the warps that release a stage and a records buffer
+  constexpr int kReaders = kWide ? kComputeWarps : kMomentWarps;
 
   if (tid == 0) {
     for (int i = 0; i < NST; ++i) {
       mbar_init(&full[i], 1);
-      mbar_init(&empty[i], kMomentWarps);
+      mbar_init(&empty[i], kReaders);
     }
     for (int i = 0; i < kRotBuffers; ++i) {
       mbar_init(&rfull[i], 1);
-      mbar_init(&rempty[i], kMomentWarps);
+      mbar_init(&rempty[i], kReaders);
     }
     for (int i = 0; i < kSumWarps; ++i) sprog[i] = 0;
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int i = tid; i < ns; i += kThreads) {
-    const int s = s0 + i;
-    pw[i] = __ldg(a.w + s);
-    pw[slice + i] = __ldg(a.ref + 3 * s);
-    pw[2 * slice + i] = __ldg(a.ref + 3 * s + 1);
-    pw[3 * slice + i] = __ldg(a.ref + 3 * s + 2);
+  if constexpr (!kWide) {
+    for (int i = tid; i < ns; i += kThreads) {
+      const int s = s0 + i;
+      pw[i] = __ldg(a.w + s);
+      pw[slice + i] = __ldg(a.ref + 3 * s);
+      pw[2 * slice + i] = __ldg(a.ref + 3 * s + 1);
+      pw[3 * slice + i] = __ldg(a.ref + 3 * s + 2);
 #pragma unroll
-    for (int k = 0; k < 6; ++k) acc[k * slice + i] = 0.0f;
+      for (int k = 0; k < 6; ++k) acc[k * slice + i] = 0.0f;
+    }
   }
   __syncthreads();   // the last block-wide barrier: roles split here
+
+  if constexpr (kWide) {
+    // the wide mode's roles; its frame solver is the one below
+    const int nck = (ns + a.chunk - 1) / a.chunk;   // chunks of the slice
+    if (warp == kLoaderWarp) {
+      wide_loader(a, ring, full, empty, ng, nck, s0, ns, lane);
+      return;
+    }
+    if (warp == kRotWarp) {
+      wide_rotations(a, frot, rfull, rempty, ng, nck, lane);
+      return;
+    }
+    if (warp != kSolverWarp) {
+      wide_compute(a, ring, frot, full, empty, rfull, rempty, sprog, ng,
+                   nck, s0, ns, warp, lane);
+      return;
+    }
+  }
 
   if (warp == kLoaderWarp) {
     // ---- loader: the first stages, then the refill of group r's stage
@@ -578,30 +910,8 @@ fused_planar_kernel(const Args a) {
       if (m >= kRotBuffers)
         mbar_wait(&rempty[b], ((m - kRotBuffers) / kRotBuffers) & 1);
       const int gf = min(G, a.B - m * G);
-      const float* src = a.rot + static_cast<size_t>(m) * G * kRot;
-      float* dst = frot + b * G * kRot;
-      const long long t0 = clock64();
-      // every field of every frame in one pass (14 used of 16), until
-      // none is unset
-      constexpr int kPer = kMaxGroup * kRot / 32;
-      float v[kPer];
-      for (;;) {
-        bool miss = false;
-#pragma unroll
-        for (int r = 0; r < kPer; ++r) {
-          const int i = lane + 32 * r;
-          const bool used = i < gf * kRot && (i & (kRot - 1)) < 14;
-          v[r] = used ? ld_relaxed(src + i) : 0.0f;
-          miss |= used && unset(v[r]);
-        }
-        if (!__any_sync(kFull, miss)) break;
-        poll_pause(t0);
-      }
-#pragma unroll
-      for (int r = 0; r < kPer; ++r) {
-        const int i = lane + 32 * r;
-        if (i < gf * kRot) dst[i] = v[r];
-      }
+      load_records(a.rot + static_cast<size_t>(m) * G * kRot,
+                   frot + b * G * kRot, gf, lane);
       warp_arrive(&rfull[b], lane);
     }
     return;
@@ -772,41 +1082,7 @@ fused_planar_kernel(const Args a) {
           r[e][c] = pw[(1 + c) * slice + i + e];
         }
       }
-      const T* x0 = base + i;
-#pragma unroll 2
-      for (int f = 0; f < gf; ++f) {
-        const float4 A = fr4[f * 4];        // R00 R01 R02 R10
-        const float4 Bq = fr4[f * 4 + 1];   // R11 R12 R20 R21
-        const float4 C = fr4[f * 4 + 2];    // R22 com0 com1 com2
-        const float4 D = fr4[f * 4 + 3];    // scale fmask
-        const T* xf = x0 + static_cast<size_t>(f) * slice;
-        float q0[2], q1[2], q2[2];
-        load2(xf, q0);
-        load2(xf + static_cast<size_t>(G) * slice, q1);
-        load2(xf + static_cast<size_t>(2 * G) * slice, q2);
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float xc0 = fmaf(q0[e], D.x, -C.y);
-          const float xc1 = fmaf(q1[e], D.x, -C.z);
-          const float xc2 = fmaf(q2[e], D.x, -C.w);
-          // (xc @ R)_j - ref_j, the reference folded into the chain
-          const float dev0 =
-              fmaf(xc2, Bq.z, fmaf(xc1, A.w, fmaf(xc0, A.x, -r[e][0])));
-          const float dev1 =
-              fmaf(xc2, Bq.w, fmaf(xc1, Bq.x, fmaf(xc0, A.y, -r[e][1])));
-          const float dev2 =
-              fmaf(xc2, C.x, fmaf(xc1, Bq.y, fmaf(xc0, A.z, -r[e][2])));
-          const float dm0 = dev0 * D.y;
-          const float dm1 = dev1 * D.y;
-          const float dm2 = dev2 * D.y;
-          sd[e][0] += dm0;
-          sd[e][1] += dm1;
-          sd[e][2] += dm2;
-          sq[e][0] += dm0 * dev0;
-          sq[e][1] += dm1 * dev1;
-          sq[e][2] += dm2 * dev2;
-        }
-      }
+      add_frames(fr4, base + i, gf, G, slice, r, sd, sq);
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
 #pragma unroll
@@ -841,12 +1117,12 @@ fused_planar_kernel(const Args a) {
 // type and process to the card's limit: a host call, so it never runs
 // inside a stream capture (the first launch of each type comes from an
 // eager dispatch or a warmup).
-template <typename T>
+template <typename T, bool kWide>
 cudaError_t allow_full_smem() {
   static std::once_flag once;
   static cudaError_t err = cudaSuccess;
   std::call_once(once, [] {
-    err = cudaFuncSetAttribute(fused_planar_kernel<T>,
+    err = cudaFuncSetAttribute(fused_planar_kernel<T, kWide>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(kSmemMax));
   });
@@ -856,11 +1132,13 @@ cudaError_t allow_full_smem() {
 // One cooperative launch through cudaLaunchKernelExC with the
 // cooperative attribute: the same launch eagerly and under stream
 // capture, where it becomes a cooperative kernel node of the graph.
-template <typename T>
+template <typename T, bool kWide>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const long long smem = smem_bytes(a.slice, a.group, a.stages, sizeof(T));
+  const long long smem =
+      kWide ? wide_smem_bytes(a.chunk, a.group, a.stages, sizeof(T))
+            : smem_bytes(a.slice, a.group, a.stages, sizeof(T));
   if (smem > kSmemMax) return cudaErrorInvalidValue;
-  cudaError_t e = allow_full_smem<T>();
+  cudaError_t e = allow_full_smem<T, kWide>();
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeCooperative;
@@ -874,9 +1152,15 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   cfg.numAttrs = 1;
   void* params[] = {const_cast<Args*>(&a)};
   e = cudaLaunchKernelExC(
-      &cfg, reinterpret_cast<const void*>(fused_planar_kernel<T>), params);
+      &cfg, reinterpret_cast<const void*>(fused_planar_kernel<T, kWide>),
+      params);
   const cudaError_t last = cudaGetLastError();
   return e != cudaSuccess ? e : last;
+}
+
+template <typename T>
+cudaError_t launch_mode(const Args& a, cudaStream_t stream) {
+  return a.chunk > 0 ? launch<T, true>(a, stream) : launch<T, false>(a, stream);
 }
 
 }  // namespace
@@ -885,21 +1169,23 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // inverse scales, or null to use inv_scalar for every frame.  ref is the
 // padded centred reference in its (S, 3) layout.  Geometry (from
 // ops/fused_planar.fused_geometry): `blocks` slices of `slice` atoms (the
-// last may be shorter), frames in groups of `group`, a ring of `stages`.
-// Scratch: part (B, 12, blocks) then rot (B, 16) float32, every word
-// 0xffffffff on entry.  Launches one cooperative kernel on `stream` and
-// returns its error (0 on success).
+// last may be shorter), frames in groups of `group`, a ring of `stages`;
+// `chunk` 0 for the single-read form, else the wide mode's chunk (a
+// multiple of 16 up to kWideChunk atoms).  Scratch: part (B, 12, blocks)
+// then rot (B, 16) float32, every word 0xffffffff on entry.  Launches one
+// cooperative kernel on `stream` and returns its error (0 on success).
 extern "C" int mdtpu_fused_planar(const void* qp, int dtype, int B, int S,
                                   const float* inv, float inv_scalar,
                                   const float* w, const float* ref,
                                   const float* amask, const float* fmask,
                                   const float* sref, int slice, int blocks,
-                                  int group, int stages, float* scratch,
-                                  float* out, void* stream) {
+                                  int group, int stages, int chunk,
+                                  float* scratch, float* out, void* stream) {
   if (B < 1 || S < 16 || S % 16 != 0 || slice < 16 || slice % 16 != 0 ||
       blocks < 1 || blocks > kMaxBlocks || static_cast<long long>(blocks) * slice < S ||
       static_cast<long long>(blocks - 1) * slice >= S || group < 1 ||
-      group > kMaxGroup || stages < 2 || stages > kMaxStages) {
+      group > kMaxGroup || stages < 2 || stages > kMaxStages ||
+      chunk < 0 || chunk % 16 != 0 || chunk > kWideChunk) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a;
@@ -917,6 +1203,7 @@ extern "C" int mdtpu_fused_planar(const void* qp, int dtype, int B, int S,
   a.blocks = blocks;
   a.group = group;
   a.stages = stages;
+  a.chunk = chunk;
   a.part = scratch;
   a.rot = scratch + static_cast<size_t>(B) * 12 * blocks;
   a.out = out;
@@ -924,13 +1211,13 @@ extern "C" int mdtpu_fused_planar(const void* qp, int dtype, int B, int S,
   cudaError_t e;
   switch (dtype) {
     case 0:
-      e = launch<int16_t>(a, st);
+      e = launch_mode<int16_t>(a, st);
       break;
     case 1:
-      e = launch<int8_t>(a, st);
+      e = launch_mode<int8_t>(a, st);
       break;
     case 2:
-      e = launch<float>(a, st);
+      e = launch_mode<float>(a, st);
       break;
     default:
       e = cudaErrorInvalidValue;

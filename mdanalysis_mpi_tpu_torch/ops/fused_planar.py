@@ -29,18 +29,21 @@ per-frame rotation solved by QCP inside the sweep.
   version to a float64 SVD Kabsch.
 - :func:`fused_geometry` sizes the launch: one block per SM, each owning
   a slice of atoms (a multiple of 16), frames in groups of ``group``
-  copied into a ring of ``stages`` shared-memory stages.
+  copied into a ring of ``stages`` shared-memory stages.  Above
+  :func:`fused_max_atoms` a slice no longer fits two stages, and the
+  geometry takes the kernel's wide mode: a fifth entry, ``chunk``, the
+  atoms of the slice a stage holds, with the block read twice.
 
 The kernel replaces ``mdanalysis_mpi_tpu/ops/pallas_fused.py::
 _build_planar`` (``pl.pallas_call`` at :289).  The function is bound by
 bytes, one read of the staged block, ``3·B·S·sizeof(dtype)``, over the
 card's memory rate, and the kernel reads the block from device memory
-once: each block bulk-copies its slice's rows into a ring of
-shared-memory stages; warps with fixed roles take the per-frame sums,
-exchange them with the other blocks through L2 (each frame combined in
-block order and solved by QCP on one thread of one block; no float
-atomics) and take the moments from the same stage.  The design and its
-sizing are at the top of the CUDA source.
+once (twice in the wide mode): each block bulk-copies its slice's rows
+into a ring of shared-memory stages; warps with fixed roles take the
+per-frame sums, exchange them with the other blocks through L2 (each
+frame combined in block order and solved by QCP on one thread of one
+block; no float atomics) and take the moments from the same stage.  The
+design and its sizing are at the top of the CUDA source.
 """
 
 from __future__ import annotations
@@ -61,13 +64,17 @@ _ITEMSIZE = {torch.int16: 2, torch.int8: 1, torch.float32: 4}
 # tests/test_torch_cuda.py holds the two together at the limit): shared
 # memory a block may use on Hopper, the slice granule, the stage ring's
 # bounds, the most blocks its frame solver takes, and the group's target
-# of 24 bytes per atom-row (12 int16, 24 int8, 6 float32 frames)
+# of 24 bytes per atom-row (12 int16, 24 int8, 6 float32 frames); the
+# wide mode's largest chunk (two atoms a compute thread, kWideChunk) and
+# the stages its chunk is sized for
 SMEM_MAX = 232_448
 SLICE_ATOMS = 16
 MAX_STAGES = 12
 MAX_BLOCKS = 160
 _MIN_STAGES = 3
 _GROUP_ROW_BYTES = 24
+WIDE_CHUNK = 768
+_WIDE_STAGES = 4
 
 
 def _inv_column(inv_scale, B: int, device) -> torch.Tensor:
@@ -130,19 +137,23 @@ def _check(name, t, shape, device):
 
 
 def fused_smem_bytes(slice_atoms: int, group: int, stages: int,
-                     itemsize: int) -> int:
+                     itemsize: int, chunk: int = 0) -> int:
     """Shared memory of one block (``smem_bytes`` in the CUDA source):
     512 B of barriers and four 64-byte rotation records a frame of the
     group; 40 B an atom of parameters and accumulators; the stage
-    ring."""
+    ring.  With a ``chunk`` (the wide mode, ``wide_smem_bytes``) the
+    ring's stages hold ``chunk`` atoms and there is no per-atom area."""
     fixed = 512 + 256 * group
+    if chunk:
+        return fixed + stages * 3 * group * chunk * itemsize
     return fixed + 40 * slice_atoms + stages * 3 * group * slice_atoms \
         * itemsize
 
 
 def fused_max_atoms(itemsize: int, n_sm: int) -> int:
-    """The largest S (a multiple of 256) the kernel takes on ``n_sm``
-    SMs: every slice fits one frame a group in two stages."""
+    """The largest S (a multiple of 256) of the kernel's single-read
+    form on ``n_sm`` SMs: every slice fits one frame a group in two
+    stages.  Above it :func:`fused_geometry` takes the wide mode."""
     n_sm = min(n_sm, MAX_BLOCKS)
     per_atom = 2 * 3 * itemsize + 40
     slice_max = (SMEM_MAX - fused_smem_bytes(0, 1, 0, itemsize)) \
@@ -153,28 +164,37 @@ def fused_max_atoms(itemsize: int, n_sm: int) -> int:
 @functools.lru_cache(maxsize=256)
 def fused_geometry(B: int, S: int, itemsize: int, n_sm: int):
     """Launch geometry ``(slice, blocks, group, stages)`` for ``B``
-    frames of ``S`` atoms of ``itemsize`` bytes on ``n_sm`` SMs.
+    frames of ``S`` atoms of ``itemsize`` bytes on ``n_sm`` SMs, or
+    ``(slice, blocks, group, stages, chunk)`` in the wide mode.
 
     ``slice`` is the least multiple of 16 atoms that covers ``S`` in at
     most ``n_sm`` blocks (the last block's slice may be shorter); the
     group is the largest up to 24 bytes an atom-row (and at most ``B``)
     that leaves room for three stages, then the ring takes up to twelve.
-    Raises ``ValueError`` unless ``S % 256 == 0`` and ``S`` is within
-    :func:`fused_max_atoms`."""
+    Above :func:`fused_max_atoms` the single-read form does not fit, and
+    the wide mode streams each slice in chunks: the group is 24 int8 or
+    12 wider frames (at most ``B``), the chunk the most even split of the
+    slice into multiples of 16 atoms, at most 768, that fits four stages,
+    then the ring takes up to twelve.  Raises ``ValueError`` unless ``S %
+    256 == 0``."""
     n_sm = min(n_sm, MAX_BLOCKS)
     if S < 256 or S % 256:
         raise ValueError(
             f"fused kernel: S = {S} atoms must be a positive multiple of "
             "256 (pad_selection's ATOM_TILE)")
-    limit = fused_max_atoms(itemsize, n_sm)
-    if S > limit:
-        raise ValueError(
-            f"fused kernel: S = {S} atoms exceeds the limit of {limit} "
-            f"atoms for {itemsize}-byte planes on {n_sm} SMs (one frame "
-            "a group in two shared-memory stages per block)")
     per = -(-(S // SLICE_ATOMS) // n_sm)
     slice_atoms = SLICE_ATOMS * per
     blocks = -(-S // slice_atoms)
+    if S > fused_max_atoms(itemsize, n_sm):
+        group = min(24 if itemsize == 1 else 12, B)
+        room = SMEM_MAX - fused_smem_bytes(0, group, 0, itemsize)
+        row = 3 * group * itemsize          # a stage's bytes an atom
+        most = min(WIDE_CHUNK, room // (_WIDE_STAGES * row)
+                   // SLICE_ATOMS * SLICE_ATOMS)
+        n_chunks = -(-slice_atoms // most)
+        chunk = SLICE_ATOMS * -(-per // n_chunks)
+        return (slice_atoms, blocks, group,
+                min(MAX_STAGES, room // (row * chunk)), chunk)
     for group in range(min(_GROUP_ROW_BYTES // itemsize, B), 0, -1):
         room = SMEM_MAX - fused_smem_bytes(slice_atoms, group, 0, itemsize)
         stages = room // (3 * group * slice_atoms * itemsize)
@@ -203,10 +223,15 @@ def _launch(qp, inv_scale, wN, refc_p, amask, sref, fmask):
     _, B, S = qp.shape
     if B < 1:
         raise ValueError(f"fused kernel: empty block {tuple(qp.shape)}")
-    slice_atoms, blocks, group, stages = fused_geometry(
-        B, S, _ITEMSIZE[qp.dtype], _sm_count(dev))
+    geometry = fused_geometry(B, S, _ITEMSIZE[qp.dtype], _sm_count(dev))
+    slice_atoms, blocks, group, stages = geometry[:4]
+    chunk = geometry[4] if len(geometry) > 4 else 0
     _check("wN", wN, (S,), dev)
     _check("refc_p", refc_p, (S, 3), dev)
+    if wN.data_ptr() % 16 or refc_p.data_ptr() % 16:
+        raise ValueError(
+            "fused kernel: wN and refc_p must be 16-byte aligned (the "
+            "wide mode reads them four atoms at a time)")
     _check("amask", amask, (S,), dev)
     _check("sref", sref, (3,), dev)
     _check("fmask", fmask, (B,), dev)
@@ -241,7 +266,7 @@ def _launch(qp, inv_scale, wN, refc_p, amask, sref, fmask):
             qp.data_ptr(), _DTYPE_CODES[qp.dtype], B, S, inv_ptr,
             ctypes.c_float(inv_scalar), wN.data_ptr(), refc_p.data_ptr(),
             amask.data_ptr(), fmask.data_ptr(), sref.data_ptr(),
-            slice_atoms, blocks, group, stages, scratch.data_ptr(),
+            slice_atoms, blocks, group, stages, chunk, scratch.data_ptr(),
             out.data_ptr(), stream)
     if rc != 0:
         raise _build.KernelLaunchError(

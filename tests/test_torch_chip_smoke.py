@@ -154,21 +154,26 @@ def test_phase_18_runs_last_and_needs_no_other_phase():
 
 
 def test_phase_18_fused_draws_force_the_geometry_corners():
-    """The forced cases alone reach every corner the phase checks, on
-    the H100's 132 SMs; the drawn ones stay within the main shape."""
+    """The forced cases alone (8 first, the 3 wide ones last) reach
+    every corner the phase checks, on the H100's 132 SMs; the drawn ones
+    stay within the main shape and are those of the seed without the
+    wide corners."""
     import numpy as np
 
     from mdanalysis_mpi_tpu_torch.ops import fused_planar as fp
 
     draws = chip_smoke.fuzz_fused_draws(np.random.default_rng(0), 132)
-    assert len(draws) == chip_smoke.FUZZ_FUSED_CASES + 8
+    assert len(draws) == chip_smoke.FUZZ_FUSED_CASES + 11
     seen = set()
-    for B, n_real, dtype, _ in draws[:8]:
+    for B, n_real, dtype, _ in draws[:8] + draws[-3:]:
         S = -(-n_real // 256) * 256
         seen.add((dtype, S) + fp.fused_geometry(
             B, S, chip_smoke.FUZZ_DTYPES[dtype], 132))
     chip_smoke.fuzz_geometry_reached(seen, 132)
-    for B, n_real, dtype, _ in draws[8:]:
+    for (B, n_real, dtype, _), itemsize in zip(draws[-3:], (2, 1, 4)):
+        assert -(-n_real // 256) * 256 == fp.fused_max_atoms(itemsize,
+                                                             132) + 256
+    for B, n_real, dtype, _ in draws[8:-3]:
         assert 1 <= B < 600 and 1 <= n_real < 70000
         assert B * (-(-n_real // 256) * 256) <= chip_smoke.FUZZ_MAX_ELEMS
 
@@ -218,3 +223,39 @@ def test_phase_18_rehearsed_on_the_cpu(monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "fuzz seed 18" in out and "fuzz phase launches" in out
     assert "stages 2" in out and "group 1" in out
+
+
+def test_phase_19_rehearsed_on_the_cpu(monkeypatch, capsys):
+    """Phase 19 end to end at a small size on the CPU: the single-read
+    limit lowered below the selection (so the geometry is the wide
+    mode's), the plain version wrapped to count as the kernel's wrapper
+    does; fused against generic, the repeat, the oracle and the
+    fallback counter all checked."""
+    import torch
+
+    from mdanalysis_mpi_tpu_torch import _build
+    from mdanalysis_mpi_tpu_torch.ops import fused_planar as fp
+
+    plain = fp.planar_sums_plain
+
+    def counted(*a):
+        _build.count_launch(fp.planar_sums)
+        return plain(*a)
+
+    monkeypatch.setattr(fp, "planar_sums_plain", counted)
+    monkeypatch.setattr(fp, "fused_max_atoms", lambda itemsize, n_sm: 512)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "sm_count", lambda device: 132)
+    for name, value in [("WIDE_ATOMS", 4000), ("WIDE_FRAMES", 24),
+                        ("WIDE_BATCH", 8), ("WIDE_ORACLE", 8),
+                        ("WIDE_DEVICE", "cpu")]:
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(fp.planar_sums, "launches", 0)
+    launches = chip_smoke.phase_wide("cpu (rehearsal)")
+    # three wires and a repeat, 3 blocks x 2 passes each; the oracle's
+    # fused run, 1 block x 2 passes
+    assert launches == 4 * 6 + 2
+    out = capsys.readouterr().out
+    assert "wide int16: repeat bit-identical" in out
+    assert "mdtpu_fused_fallbacks_total +0" in out
+    assert "[4, 8, 14, 15, 16, 9, 10, 17]" not in out

@@ -13,8 +13,12 @@ JAX, so it runs on a GPU machine that has no JAX:
   the main shape (131 blocks on an H100), slices above 384 atoms (the
   sums' shared-memory path), a per-frame scale given as a
   device tensor, a launch on a side stream (bit-identical to the
-  default stream's), and the wrapper raising for S % 256 != 0 and for S
-  beyond the shared-memory limit.
+  default stream's), the wrapper raising for S % 256 != 0, and the wide
+  mode beyond the single-read form's shared-memory limit: the first
+  wide S of each dtype and S = 1,048,576 against the plain version, an
+  int8 block of more than 2^31 elements against the plain version
+  summed over frame chunks, a CUDA-graph replay and its kernel nodes,
+  and AlignedRMSF at 700,160 atoms against the generic engine.
 - ``csrc/pair_histogram.cu`` (``fused_distances.pair_histogram``): the
   counts EQUAL to the plain version's (every float step is one
   round-to-nearest intrinsic and the kernel's division-free minimum
@@ -177,21 +181,199 @@ def test_cuda_kernel_side_stream_is_bit_identical():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["unpadded", "beyond-limit"])
+@pytest.mark.parametrize("case", ["unpadded", "beyond-limit",
+                                  "misaligned"])
 def test_cuda_kernel_wrapper_raises_outside_its_envelope(case):
-    """S % 256 != 0 and S beyond the shared-memory limit raise before
-    any launch."""
+    """S % 256 != 0 and parameters not 16-byte aligned raise before any
+    launch.  S beyond the single-read form's shared-memory limit is
+    inside the envelope since the wide mode: it launches once and
+    matches the plain version."""
     dev = _card()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    S = 300 if case == "unpadded" else fp.fused_max_atoms(2, sms) + 256
+    n0 = fp.planar_sums.launches
+    if case == "beyond-limit":
+        args, T = _card_case(2, fp.fused_max_atoms(2, sms) + 256, "int16",
+                             dev, seed=5)
+        out = fp.planar_sums(*args)
+        plain = fp.planar_sums_plain(*args)
+        torch.cuda.synchronize()
+        assert fp.planar_sums.launches == n0 + 1
+        _assert_moments_close(out, plain, T)
+        return
+    S = 300 if case == "unpadded" else 256
     qp = torch.zeros((3, 2, S), dtype=torch.int16, device=dev)
     vec = torch.zeros(S, device=dev)
-    n0 = fp.planar_sums.launches
-    match = "multiple of 256" if case == "unpadded" else "exceeds the limit"
+    w = vec if case == "unpadded" else torch.zeros(S + 1, device=dev)[1:]
+    match = "multiple of 256" if case == "unpadded" else "16-byte aligned"
     with pytest.raises(ValueError, match=match):
-        fp.planar_sums(qp, 0.01, vec, torch.zeros((S, 3), device=dev), vec,
+        fp.planar_sums(qp, 0.01, w, torch.zeros((S, 3), device=dev), vec,
                        torch.zeros(3, device=dev), torch.ones(2, device=dev))
     assert fp.planar_sums.launches == n0
+
+
+def _card_case(B, S, dtype, dev, seed, valid_b=None, step=32):
+    """A case of S real atoms made on the card (wide selections are slow
+    to make on the host): frames are rigid rotations and shifts of a
+    reference of scale 4 Å plus 0.3 Å noise, as in ``_fused_case``,
+    staged ``step`` frames at a time with a per-frame scale → (args of
+    planar_sums, T)."""
+    r = np.random.default_rng(seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    refc = 4.0 * torch.randn((S, 3), generator=g, device=dev)
+    refc -= refc.mean(dim=0)
+    wN, refc_p, _, amask, sref = fr.build_params(
+        refc, np.zeros(3), r.uniform(1, 12, size=S), S, S)
+    U, _, Vt = np.linalg.svd(r.normal(size=(B, 3, 3)))
+    U[np.linalg.det(U @ Vt) < 0, :, -1] *= -1
+    rots = torch.from_numpy((U @ Vt).astype(np.float32)).to(dev)
+    qp = torch.empty((3, B, S), dtype=getattr(torch, dtype), device=dev)
+    inv = torch.ones(B, device=dev)
+    for f0 in range(0, B, step):
+        f1 = min(B, f0 + step)
+        x = torch.einsum("sj,bij->bsi", refc, rots[f0:f1])
+        x += 10.0 * torch.randn((f1 - f0, 1, 3), generator=g, device=dev)
+        x += 0.3 * torch.randn(x.shape, generator=g, device=dev)
+        planes = x.permute(2, 0, 1)
+        if dtype == "float32":
+            qp[:, f0:f1] = planes
+            continue
+        top = 32767.0 if dtype == "int16" else 127.0
+        inv[f0:f1] = planes.abs().amax(dim=(0, 2)) / top
+        qp[:, f0:f1] = torch.round(planes / inv[None, f0:f1, None]).to(
+            qp.dtype)
+        del x, planes
+    fmask = torch.zeros(B, device=dev)
+    fmask[:B if valid_b is None else valid_b] = 1.0
+    return (qp, inv, wN, refc_p, amask, sref, fmask), float(fmask.sum())
+
+
+def _plain_by_frames(args, step=64):
+    """The plain version over frame chunks, summed in float64: the same
+    function where the whole block's float32 temporaries would not fit
+    on the card."""
+    qp, inv, wN, refc_p, amask, sref, fmask = args
+    total = 0.0
+    for f0 in range(0, qp.shape[1], step):
+        total = total + fp.planar_sums_plain(
+            qp[:, f0:f0 + step], inv[f0:f0 + step], wN, refc_p, amask,
+            sref, fmask[f0:f0 + step]).double()
+    return total.float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", ["first-wide", "1048576"])
+@pytest.mark.parametrize("dtype", ["int16", "int8", "float32"])
+def test_cuda_wide_mode_matches_plain(dtype, width):
+    """Beyond the single-read limit (the first wide S of each dtype, one
+    padding granule above it, and S = 1,048,576) the kernel's wide mode
+    matches the plain version, one launch a call, two launches bit for
+    bit."""
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    itemsize = {"int16": 2, "int8": 1, "float32": 4}[dtype]
+    S = (fp.fused_max_atoms(itemsize, sms) + 256 if width == "first-wide"
+         else int(width))
+    assert len(fp.fused_geometry(13, S, itemsize, sms)) == 5
+    args, T = _card_case(13, S, dtype, dev, seed=S, valid_b=11)
+    n0 = fp.planar_sums.launches
+    out = fp.planar_sums(*args)
+    again = fp.planar_sums(*args)
+    plain = fp.planar_sums_plain(*args)
+    torch.cuda.synchronize()
+    assert fp.planar_sums.launches == n0 + 2
+    assert torch.equal(out, again)
+    _assert_moments_close(out, plain, T)
+
+
+@pytest.mark.cuda
+def test_cuda_wide_mode_int8_beyond_2_31_elements():
+    """An int8 block of 512 frames of 1,441,792 atoms holds more than
+    2^31 elements: the kernel's 64-bit row offsets reach every frame
+    (the plain version summed over frame chunks in float64)."""
+    dev = _card()
+    B, S = 512, 1_441_792
+    assert 3 * B * S > 2 ** 31
+    args, T = _card_case(B, S, "int8", dev, seed=8, valid_b=509)
+    out = fp.planar_sums(*args)
+    plain = _plain_by_frames(args)
+    torch.cuda.synchronize()
+    _assert_moments_close(out, plain, T)
+
+
+@pytest.mark.cuda
+def test_cuda_wide_mode_graph_replay_and_nodes():
+    """A wide call captured in a CUDA graph replays equal to its eager
+    run, and the graph holds one hand-kernel node, the launch its
+    capture recorded (MDT111's count)."""
+    from mdanalysis_mpi_tpu_torch import _build
+    from mdanalysis_mpi_tpu_torch.lint import graphcontracts as gc
+
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    args, _ = _card_case(30, fp.fused_max_atoms(1, sms) + 256, "int8", dev,
+                         seed=30, valid_b=27)
+    eager = fp.planar_sums(*args)
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fp.planar_sums(*args)                 # warm the allocator
+        with _build.recording() as launched:
+            g.capture_begin()
+            out = fp.planar_sums(*args)
+            g.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    g.instantiate()
+    for _ in range(2):
+        out.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    assert launched == [fp.planar_sums]
+    nodes = gc.read_graph_nodes(g.raw_cuda_graph())
+    assert gc.hand_kernel_nodes(nodes) == {"planar_sums": 1,
+                                           "pair_histogram": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire,tol", [("int16", 5e-4), ("int8", 5e-4),
+                                      ("delta", 5e-3)])
+def test_cuda_fused_aligned_rmsf_at_a_wide_selection(wire, tol):
+    """AlignedRMSF(engine='fused') of 700,000 atoms (S = 700,160, past
+    every dtype's single-read limit) runs the kernel's wide mode on the
+    card, with no fallback, and agrees with the generic engine on the
+    same wire (the fused-vs-generic tolerances of phase 4)."""
+    from mdanalysis_mpi_tpu_torch import Universe, obs
+    from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
+    from mdanalysis_mpi_tpu_torch.core.topology import Topology
+    from mdanalysis_mpi_tpu_torch.io.memory import MemoryReader
+
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n, n_frames = 700_000, 24
+    r = np.random.default_rng(7)
+    base = r.normal(scale=20.0, size=(n, 3)).astype(np.float32)
+    frames = base + r.normal(scale=0.3, size=(n_frames, n, 3)).astype(
+        np.float32)
+    u = Universe(Topology(names=np.full(n, "CA"),
+                          resnames=np.full(n, "ALA"),
+                          resids=np.arange(n) + 1), MemoryReader(frames))
+    assert fr.pad_selection(np.arange(n))[0].size > fp.fused_max_atoms(1,
+                                                                       sms)
+
+    def fallbacks():
+        return sum(obs.METRICS.snapshot().get(
+            "mdtpu_fused_fallbacks_total", {"values": {}})["values"].values())
+
+    kw = dict(backend="torch", device="cuda", batch_size=8,
+              transfer_dtype=wire)
+    n0, f0 = fp.planar_sums.launches, fallbacks()
+    fused = AlignedRMSF(u, select="name CA", engine="fused").run(**kw)
+    torch.cuda.synchronize()
+    assert fp.planar_sums.launches - n0 == 6          # 3 blocks x 2 passes
+    assert fallbacks() == f0
+    generic = AlignedRMSF(u, select="name CA").run(**kw)
+    assert np.abs(fused.results.rmsf - generic.results.rmsf).max() <= tol
 
 
 @pytest.mark.cuda

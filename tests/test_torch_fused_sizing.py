@@ -8,10 +8,13 @@ stages; the geometry decides the slice, the group and the ring from
 envelope: every atom in exactly one slice, slices a multiple of 16
 atoms (16-byte rows for every dtype), a block's shared memory within
 the 232,448 bytes Hopper allows, at least one frame a group, at most
-one block per SM, and the wrapper's limits (``S % 256 == 0``, S up to
-:func:`fused_max_atoms`).  That the kernel's own layout agrees with
-this sizing is held on the card (tests/test_torch_cuda.py: a launch at
-the limit goes through, one more stage is refused).
+one block per SM, and the wrapper's limit (``S % 256 == 0``).  Above
+:func:`fused_max_atoms` (the single-read form's limit) the geometry is
+the kernel's wide mode, whose fifth entry is the chunk of a slice a
+stage holds: the chunks cover each slice, and the ring of chunks fits.
+That the kernel's own layout agrees with this sizing is held on the
+card (tests/test_torch_cuda.py: a launch at the limit goes through, one
+more stage is refused; the first wide S of each dtype runs).
 """
 
 import pytest
@@ -50,12 +53,35 @@ def test_main_shape_geometry():
     assert fp.fused_smem_bytes(384, 12, 7, 2) == 212_480
 
 
+def _assert_wide_fits(B, S, itemsize, n_sm):
+    """The wide geometry: every atom in exactly one slice, every slice
+    covered by its chunks in order, at most one block per SM, and the
+    ring of chunks within the shared memory a block may use."""
+    geometry = fp.fused_geometry(B, S, itemsize, n_sm)
+    assert len(geometry) == 5
+    slice_atoms, blocks, group, stages, chunk = geometry
+    assert slice_atoms % fp.SLICE_ATOMS == 0
+    assert (blocks - 1) * slice_atoms < S <= blocks * slice_atoms
+    assert blocks <= min(n_sm, fp.MAX_BLOCKS)
+    assert chunk % fp.SLICE_ATOMS == 0 and 16 <= chunk <= fp.WIDE_CHUNK
+    # every block but the last owns a whole slice
+    for owned in {slice_atoms, S - (blocks - 1) * slice_atoms}:
+        chunks = [min(chunk, owned - c0) for c0 in range(0, owned, chunk)]
+        assert sum(chunks) == owned and min(chunks) > 0
+        assert all(n % fp.SLICE_ATOMS == 0 for n in chunks)
+    assert 1 <= group <= min(B, 24 if itemsize == 1 else 12)
+    assert 2 <= stages <= fp.MAX_STAGES
+    assert fp.fused_smem_bytes(slice_atoms, group, stages, itemsize,
+                               chunk) <= fp.SMEM_MAX
+    return geometry
+
+
 @pytest.mark.parametrize("n_sm", [114, 132])
 @pytest.mark.parametrize("itemsize", [1, 2, 4])
 def test_limit_is_exact(itemsize, n_sm):
-    """S = the limit takes one frame a group or more; S one padding
-    granule above it raises, because its slice cannot hold even one
-    frame in two stages."""
+    """S = the limit takes one frame a group or more in the single-read
+    form; S one padding granule above it takes the wide mode, because
+    its slice cannot hold even one frame in two stages."""
     limit = fp.fused_max_atoms(itemsize, n_sm)
     assert limit % 256 == 0 and limit > 16384
     slice_atoms, blocks, group, stages = fp.fused_geometry(512, limit,
@@ -66,8 +92,38 @@ def test_limit_is_exact(itemsize, n_sm):
     above = limit + 256
     slice_above = 16 * -(-(above // 16) // n_sm)
     assert fp.fused_smem_bytes(slice_above, 1, 2, itemsize) > fp.SMEM_MAX
-    with pytest.raises(ValueError, match="exceeds the limit"):
-        fp.fused_geometry(512, above, itemsize, n_sm)
+    geometry = _assert_wide_fits(512, above, itemsize, n_sm)
+    assert geometry[0] == slice_above and geometry[4] < slice_above
+
+
+@pytest.mark.parametrize("n_sm", [114, 132])
+@pytest.mark.parametrize("itemsize", [1, 2, 4])
+def test_wide_geometry_from_the_limit_to_4m_atoms(itemsize, n_sm):
+    """Every multiple of 256 from the single-read limit + 256 up to
+    4,194,304 atoms (odd multiples of 256 among them) takes a launchable
+    wide geometry, for one frame, a group's worth and a main-path
+    block."""
+    limit = fp.fused_max_atoms(itemsize, n_sm)
+    for S in range(limit + 256, 4_194_304 + 1, 256):
+        _assert_wide_fits(512, S, itemsize, n_sm)
+    for B in (1, 5, 13, 25):
+        for S in (limit + 256, limit + 768, 1_048_576, 4_194_304):
+            _assert_wide_fits(B, S, itemsize, n_sm)
+
+
+@pytest.mark.parametrize("n_sm", [114, 132])
+@pytest.mark.parametrize("itemsize", [1, 2, 4])
+def test_every_width_below_the_limit_keeps_the_single_read_form(itemsize,
+                                                               n_sm):
+    """Up to the single-read limit every multiple of 256 keeps a
+    four-entry geometry that fits, as before the wide mode."""
+    limit = fp.fused_max_atoms(itemsize, n_sm)
+    for S in range(256, limit + 1, 256):
+        geometry = fp.fused_geometry(512, S, itemsize, n_sm)
+        assert len(geometry) == 4
+        slice_atoms, _, group, stages = geometry
+        assert fp.fused_smem_bytes(slice_atoms, group, stages,
+                                   itemsize) <= fp.SMEM_MAX
 
 
 def test_main_limits_on_132_sms():
