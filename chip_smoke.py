@@ -995,7 +995,7 @@ def phase_wide_kernels(card_name, rows):
     for dtype, itemsize in (("int16", 2), ("int8", 1), ("float32", 4)):
         name = f"wide-{dtype}"
         geometry = fp.fused_geometry(WIDE_B, WIDE_S, itemsize, sms)
-        check(len(geometry) == 5, f"{name}: geometry {geometry} is not the "
+        check(len(geometry) == 7, f"{name}: geometry {geometry} is not the "
               "wide mode's")
         args = make_wide_case(WIDE_B, WIDE_S, dtype, seed=WIDE_S + itemsize)
         l0 = fp.planar_sums.launches
@@ -5233,9 +5233,11 @@ def fuzz_geometry_reached(seen, sms):
 
     geoms = sorted({g[2:] for g in seen})
     print(f"fuzz fused geometries reached ({len(geoms)} distinct "
-          f"(slice, blocks, group, stages[, chunk]) on {sms} SMs): "
+          f"(slice, blocks, group, stages[, chunk, group_b, chunk_b]) on "
+          f"{sms} SMs): "
           + " ".join(f"({','.join(map(str, g))})" for g in geoms))
-    # each entry: (dtype, S, slice, blocks, group, stages[, chunk])
+    # each entry: (dtype, S, slice, blocks, group, stages[, chunk, group_b,
+    # chunk_b])
     groups = {(e[0], e[4]) for e in seen}
     stages = {e[5] for e in seen}
     shorter = [e for e in seen if e[2] * e[3] > e[1]]
@@ -5248,7 +5250,7 @@ def fuzz_geometry_reached(seen, sms):
              ("a shorter last slice", bool(shorter))]
     for dtype in FUZZ_DTYPES:
         need.append((f"{dtype}'s wide mode",
-                     any(e[0] == dtype and len(e) == 7 for e in seen)))
+                     any(e[0] == dtype and len(e) == 9 for e in seen)))
     missing = [name for name, ok in need if not ok]
     check(not missing, f"fuzz fused sweep missed {missing}")
     print("fuzz fused corners reached: " + ", ".join(n for n, _ in need))

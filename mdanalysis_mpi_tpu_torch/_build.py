@@ -182,7 +182,8 @@ def load() -> ctypes.CDLL:
             vp, ci, ci, ci,          # qp, dtype, B, S
             vp, cf,                  # inv, inv_scalar
             vp, vp, vp, vp, vp,      # w, ref, amask, fmask, sref
-            ci, ci, ci, ci, ci,      # slice, blocks, group, stages, chunk
+            ci, ci, ci, ci,          # slice, blocks, group, stages
+            ci, ci, ci,              # chunk, group_b, chunk_b
             vp, vp,                  # scratch, out
             vp]                      # stream
         lib.mdtpu_pair_histogram.restype = ci

@@ -71,28 +71,39 @@
 //
 // Wide mode.  Where even one frame a group in two stages does not fit a
 // slice (above 4,448 atoms at int16, 5,024 at int8, 3,616 at float32: S
-// above 587,008 / 663,040 / 477,184 atoms on 132 SMs), the wrapper passes
-// a chunk (at most 768 atoms, a multiple of 16) and the same launch reads
-// the block twice, a chunk of the slice at a time through the same ring,
-// with no per-atom area in shared memory.  The solver and the rotations
-// warp are unchanged; the 12 compute warps take both roles in turn:
-//   - pass A, units (group g, chunk c) in the order g, then c: warp w
-//     takes frames w and w + 12 of the group, w and ref from global
-//     memory (L1, 16-byte loads), and carries their 12 sums in
-//     registers over the slice's chunks; after the last it publishes
-//     them as above.
-//   - pass B, units (chunk c, group g) in the order c, then g: thread t
-//     takes atoms 2t and 2t + 1 of the chunk and carries their moments in
-//     registers over the groups, whose records the rotations warp loads
-//     once a chunk; after the last group it writes the chunk's (6, chunk)
-//     output, amask applied.
+// above 587,008 / 663,040 / 477,184 atoms on 132 SMs), the same launch
+// reads the block twice, a unit at a time through one ring of stages,
+// with no per-atom area in shared memory:
+//   - pass A, units (group g of 12 frames, chunk c of the slice) in the
+//     order g, then c: warp w takes frame w and carries its 12 sums in
+//     registers over the chunks, publishing them after the last as
+//     above; the chunk's w and ref come with its frames.
+//   - pass B, window by window of up to 512 frames: the compute warps
+//     poll the window's records into a table in shared memory, then take
+//     units (chunk c, group g), c then g; thread t carries the moments of
+//     atoms 4t..4t+3 over the window's groups in registers and stores
+//     them after the last (amask applied after the last window; between
+//     windows the sums wait in `out`).
+// The solver is the single-read form's; the rotations warp fills pass
+// B's records table as the frames are solved, and the first chunk of a
+// window waits for each group's records.
+// Bound: bytes, as above, but the mode reads the block twice from device
+// memory.  Its units are tensor-map boxes, one cp.async.bulk.tensor each
+// (pass B: one a box row of at most 2,048 bytes, so 1-3), because a bulk
+// copy costs its issuing thread ~50-75 ns whatever its length: a copy a
+// row, 36-72 a unit, would hold the loader to 2.7-4.9 us a unit, longer
+// than the unit's bytes take at the card's rate (~2 us;
+// scripts/fused_rmsf_trace.py, its wide cases).  The block streams
+// through L2 evict-first, w and ref evict-last.
+// ops/fused_planar.fused_geometry sizes the units to fill a quarter of
+// the room beside the records: S = 1,048,576 on 132 SMs, B = 512 gives
+// slices of 7,952 atoms; pass A 12 frames of 512 / 896 / 256 atoms
+// (int16 / int8 / float32) with w and ref, 37 / 32 / 37 KB of frames;
+// pass B 6 / 12 / 3 frames of 1,344 / 1,328 / 1,344 atoms, 48 KB; four
+// stages.
 // Every sum keeps a fixed order (per atom: frames 0..B-1; per frame: the
 // chunks in order, then the blocks), so the wide output is bit-identical
-// from run to run too.  The function's bound stays one read of the
-// block; the wide mode reads it twice.  ops/fused_planar.fused_geometry
-// sizes the chunk so that four stages fit (int16 group 12 and int8 group
-// 24: 72 B an atom a stage; float32 group 12: 144 B): S = 1,048,576 on
-// 132 SMs gives slices of 7,952 atoms in chunks of 736 (float32 384).
+// from run to run too.
 //
 // Measured (chip_smoke.py phase 3, NVIDIA H100 80GB HBM3 at 700.00 W):
 // main shape, the median of 20 torch.profiler kernel events, 20 of 20
@@ -104,10 +115,16 @@
 // a stage returns to the loader only after its group's rotations are
 // in, and that cycle (copy, sums, the exchange, QCP ~5 us a frame on one
 // thread, the exchange back, moments) takes ~20 us while the ring holds
-// ~84 frames.  The wide mode at B = 512, S = 1,048,576 (phase 3's wide
-// rows, same card): int16 3.580 ms, int8 2.497, float32 5.145, against
-// one read's bound of 0.975 / 0.505 (operations) / 1.937 ms.
+// ~84 frames.  The wide mode at B = 512, S = 1,048,576 (the profiler
+// median of 20 launches, scripts/fused_rmsf_ab.py, same card): int16
+// 2.279 ms, int8 1.391-1.407, float32 4.290-4.293; one read's bound is
+// 0.975 / 0.505 (operations) / 1.937 ms.  What holds it back
+// (scripts/fused_rmsf_trace.py): at int16 and float32 the two reads, each
+// unit streaming at 88-96% of 3.35 TB/s, and the blocks' skew; at int8
+// pass B's instructions (~27 an atom-frame), 82% of its unit's time.
 
+#include <cuda.h>           // CUtensorMap and its enums (no libcuda link:
+                            // the encoder is fetched at run time)
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -135,8 +152,12 @@ constexpr int kNewtonIters = 40;
 constexpr int kRot = 16;          // per frame: R (9), com (3), scale, fmask
 constexpr int kMaxGroup = 24;
 constexpr int kMaxStages = 12;
-// wide mode: two atoms a compute thread a chunk
-constexpr int kWideChunk = 2 * kComputeThreads;
+// wide mode: pass B's chunk, four atoms a compute thread; pass A's box
+// rows, at most 256 eight-byte elements; the frames of records a block
+// holds (pass B runs over windows of them)
+constexpr int kWideChunkB = 4 * kComputeThreads;
+constexpr int kBoxBytes = 2048;
+constexpr int kWideRecords = 512;
 constexpr int kMaxBlocks = 160;
 constexpr int kSmemMax = 232448;
 constexpr unsigned kFull = 0xffffffffu;
@@ -158,10 +179,23 @@ struct Args {
   const float* fmask;
   const float* sref;
   int slice, blocks, group, stages;
-  int chunk;          // wide mode: atoms a chunk (0: the single-read form)
+  int chunk;          // wide mode: pass A's atoms a unit (0: single-read)
   float* part;        // (B, 12, blocks), kUnset on entry
   float* rot;         // (B, kRot), kUnset on entry
   float* out;         // (6, S)
+  int group_b, chunk_b;  // wide mode: pass B's frames and atoms a unit
+  int nbox_b;         // wide mode: pass B's boxes a unit (chunk_b / nbox_b
+                      // atoms each)
+  int records;        // wide mode: frames of records a window
+  int stage_bytes;    // wide mode: bytes a stage (a multiple of 128)
+};
+
+// The wide mode's tensor maps: the (3, B, S) planes as 8-byte elements,
+// boxes (chunk, group, 3) and (chunk_b / nbox_b, group_b, 3) in those
+// elements.  A kernel parameter of its own, __grid_constant__ so that a
+// copy reads it where it lies.
+struct WideMaps {
+  CUtensorMap a, b;
 };
 
 // Shared memory: mbarriers (512 B), kRotBuffers buffers of the frame
@@ -180,12 +214,33 @@ __host__ __device__ inline long long smem_bytes(int slice, int group,
          static_cast<long long>(stages) * 3 * group * slice * elem;
 }
 
-// The wide mode's layout: the same header, then the ring of stages, each
-// (3, G, chunk) of T.
-__host__ __device__ inline long long wide_smem_bytes(int chunk, int group,
-                                                     int stages, int elem) {
-  return fixed_bytes(group) +
-         static_cast<long long>(stages) * 3 * group * chunk * elem;
+// The wide mode's layout: 512 B of barriers, the records of a window
+// (records x 16 floats, to 128 B), then the ring of stages.  A stage holds
+// one unit of either pass, each part at a 128-byte boundary: pass A's box
+// (3, group, chunk) of T, then w (chunk floats) and ref (chunk x 3
+// floats); or pass B's nbox_b boxes, each (3, group_b, chunk_b / nbox_b)
+// of T.
+__host__ __device__ inline long long round128(long long n) {
+  return (n + 127) / 128 * 128;
+}
+
+__host__ __device__ inline long long wide_fixed_bytes(int records) {
+  return 512 + round128(static_cast<long long>(records) * kRot * 4);
+}
+
+__host__ __device__ inline long long wide_box_b_bytes(int group_b,
+                                                      int chunk_b,
+                                                      int nbox_b, int elem) {
+  return round128(3LL * group_b * (chunk_b / nbox_b) * elem);
+}
+
+__host__ __device__ inline long long wide_stage_bytes(int group, int chunk,
+                                                      int group_b, int chunk_b,
+                                                      int nbox_b, int elem) {
+  const long long pass_a = 3LL * group * chunk * elem + 16LL * chunk;
+  const long long pass_b =
+      nbox_b * wide_box_b_bytes(group_b, chunk_b, nbox_b, elem);
+  return round128(pass_a > pass_b ? pass_a : pass_b);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -613,202 +668,373 @@ __device__ __forceinline__ void add_frames(const float4* fr4, const T* x0,
 
 // ---- the wide mode (see the header)
 
-// Unit u of a block whose slice has nck chunks, for ng groups: pass A's
-// units (g, c) in the order g, then c; then pass B's in the order c, g.
-__device__ __forceinline__ void wide_unit(int u, int ng, int nck, int& g,
-                                          int& c) {
-  const int na = ng * nck;
-  if (u < na) {
-    g = u / nck;
-    c = u - g * nck;
-  } else {
-    c = (u - na) / ng;
-    g = (u - na) - c * ng;
-  }
+// L2 eviction policies of the copies: the staged block streams through
+// once a pass (evict first); w and ref are read again every group (evict
+// last).
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
 }
 
-// The loader warp: unit u's rows (3*gf rows of the chunk's atoms) into
-// its stage, one bulk copy per row.
-template <typename T>
-__device__ __forceinline__ void wide_copy(const Args& a, T* ring,
-                                          uint64_t* full, int u, int ng,
-                                          int nck, int s0, int ns,
-                                          int lane) {
-  int g, c;
-  wide_unit(u, ng, nck, g, c);
-  const int G = a.group;
-  const int stage = u % a.stages;
-  const int f0 = g * G;
-  const int gf = min(G, a.B - f0);
-  const int c0 = c * a.chunk;
-  const uint32_t bytes =
-      static_cast<uint32_t>(min(a.chunk, ns - c0)) * sizeof(T);
-  T* base = ring + static_cast<size_t>(stage) * 3 * G * a.chunk;
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+
+// One box of a (3, B, S) tensor map, from element x of a row and frame y
+// of component 0, into shared memory at dst; completion on bar.  Parts of
+// the box past the tensor arrive as zeros and count.
+__device__ __forceinline__ void box_copy(void* dst, const CUtensorMap* map,
+                                         int x, int y, uint64_t* bar,
+                                         uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(0),
+      "r"(smem_u32(bar)), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy_hint(void* dst, const void* src,
+                                               uint32_t bytes, uint64_t* bar,
+                                               uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy)
+      : "memory");
+}
+
+// A block's units, in the order the loader fills the ring and the compute
+// warps read it: pass A's (group g, chunk c), g then c; then, window by
+// window of records, pass B's (chunk c, group g), c then g.
+struct WideShape {
+  int ng;    // pass A's groups
+  int nc;    // pass A's chunks of the slice
+  int nw;    // pass B's windows of records
+  int ncb;   // pass B's chunks of the slice
+};
+
+__device__ __forceinline__ WideShape wide_shape(const Args& a, int ns) {
+  WideShape w;
+  w.ng = (a.B + a.group - 1) / a.group;
+  w.nc = (ns + a.chunk - 1) / a.chunk;
+  w.nw = (a.B + a.records - 1) / a.records;
+  w.ncb = (ns + a.chunk_b - 1) / a.chunk_b;
+  return w;
+}
+
+__device__ __forceinline__ int window_frames(const Args& a, int w) {
+  return min(a.records, a.B - w * a.records);
+}
+
+// Unit u's stage, once the compute warps have read the unit before it in
+// that stage.
+__device__ __forceinline__ int wide_acquire(uint64_t* empty, int u,
+                                            int nst) {
+  const int st = u % nst;
+  if (u >= nst) mbar_wait(&empty[st], ((u - nst) / nst) & 1);
+  // the stage was last read through the generic proxy
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  if (lane == 0) mbar_expect_tx(&full[stage], 3u * gf * bytes);
-  __syncwarp();
-  const T* qp = static_cast<const T*>(a.qp);
-  for (int k = lane; k < 3 * gf; k += 32) {
-    const int comp = k / gf;
-    const int f = k - comp * gf;
-    const T* src =
-        qp + (static_cast<size_t>(comp) * a.B + f0 + f) * a.S + s0 + c0;
-    bulk_copy(base + (static_cast<size_t>(comp) * G + f) * a.chunk, src,
-              bytes, &full[stage]);
-  }
+  return st;
 }
 
+// The loader, one thread: each unit's stage filled by one box copy and
+// the chunk's w and ref by two bulk copies (pass A), or by the chunk's
+// boxes (pass B).
 template <typename T>
-__device__ void wide_loader(const Args& a, T* ring, uint64_t* full,
-                            uint64_t* empty, int ng, int nck, int s0, int ns,
-                            int lane) {
-  const int nu = 2 * ng * nck;
+__device__ __forceinline__ void wide_loader(const Args& a,
+                                            const WideMaps& maps,
+                                            unsigned char* ring,
+                                            uint64_t* full, uint64_t* empty,
+                                            int s0, int ns) {
+  const WideShape sh = wide_shape(a, ns);
   const int nst = a.stages;
-  for (int u = 0; u < min(nst, nu); ++u)
-    wide_copy(a, ring, full, u, ng, nck, s0, ns, lane);
-  for (int u = nst; u < nu; ++u) {
-    mbar_wait(&empty[u % nst], ((u - nst) / nst) & 1);
-    wide_copy(a, ring, full, u, ng, nck, s0, ns, lane);
+  const uint64_t stream = l2_evict_first();
+  const uint64_t keep = l2_evict_last();
+  constexpr int kElem = 8 / sizeof(T);   // atoms an 8-byte element
+  const uint32_t box_a = 3u * a.group * a.chunk * sizeof(T);
+  int u = 0;
+  for (int g = 0; g < sh.ng; ++g) {
+    for (int c = 0; c < sh.nc; ++c, ++u) {
+      const int st = wide_acquire(empty, u, nst);
+      unsigned char* base = ring + static_cast<size_t>(st) * a.stage_bytes;
+      const int c0 = s0 + c * a.chunk;
+      const uint32_t n = min(a.chunk, ns - c * a.chunk);
+      mbar_expect_tx(&full[st], box_a + 16u * n);
+      box_copy(base, &maps.a, c0 / kElem, g * a.group, &full[st], stream);
+      float* pw = reinterpret_cast<float*>(base + box_a);
+      bulk_copy_hint(pw, a.w + c0, 4u * n, &full[st], keep);
+      bulk_copy_hint(pw + a.chunk, a.ref + 3 * static_cast<size_t>(c0),
+                     12u * n, &full[st], keep);
+    }
+  }
+  const int per_box = a.chunk_b / a.nbox_b;
+  const uint32_t box_b = 3u * a.group_b * per_box * sizeof(T);
+  const size_t slot =
+      wide_box_b_bytes(a.group_b, a.chunk_b, a.nbox_b, sizeof(T));
+  for (int w = 0; w < sh.nw; ++w) {
+    const int ngw = (window_frames(a, w) + a.group_b - 1) / a.group_b;
+    for (int c = 0; c < sh.ncb; ++c) {
+      const int c0 = s0 + c * a.chunk_b;
+      const int n = min(a.chunk_b, ns - c * a.chunk_b);
+      const int nbox = (n + per_box - 1) / per_box;   // boxes with atoms
+      for (int g = 0; g < ngw; ++g, ++u) {
+        const int st = wide_acquire(empty, u, nst);
+        unsigned char* base = ring + static_cast<size_t>(st) * a.stage_bytes;
+        mbar_expect_tx(&full[st], nbox * box_b);
+        for (int k = 0; k < nbox; ++k)
+          box_copy(base + k * slot, &maps.b, (c0 + k * per_box) / kElem,
+                   w * a.records + g * a.group_b, &full[st], stream);
+      }
+    }
   }
 }
 
-// The rotations warp: for each of pass B's units (chunk c, group g), the
-// group's records into the next of the four buffers.
-__device__ void wide_rotations(const Args& a, float* frot, uint64_t* rfull,
-                               uint64_t* rempty, int ng, int nck, int lane) {
-  const int G = a.group;
-  for (int v = 0; v < nck * ng; ++v) {
-    const int g = v % ng;
-    const int rb = v % kRotBuffers;
-    if (v >= kRotBuffers)
-      mbar_wait(&rempty[rb], ((v - kRotBuffers) / kRotBuffers) & 1);
-    load_records(a.rot + static_cast<size_t>(g) * G * kRot,
-                 frot + rb * G * kRot, min(G, a.B - g * G), lane);
-    warp_arrive(&rfull[rb], lane);
+// The rotations warp: window by window, the records into the table in
+// batches of up to kMaxGroup frames as the solvers store them (polled),
+// each batch announced by the frame count in `rprog`; a window's table is
+// refilled once the compute warps have read the one before (`tfree`).
+__device__ __forceinline__ void wide_records(const Args& a, float* table,
+                                             volatile int* rprog,
+                                             uint64_t* tfree, int lane) {
+  const int nw = (a.B + a.records - 1) / a.records;
+  for (int w = 0; w < nw; ++w) {
+    if (w > 0) mbar_wait(tfree, (w - 1) & 1);
+    const int f0 = w * a.records;
+    const int nf = window_frames(a, w);
+    for (int f = 0; f < nf; f += kMaxGroup) {
+      const int gf = min(kMaxGroup, nf - f);
+      load_records(a.rot + static_cast<size_t>(f0 + f) * kRot,
+                   table + f * kRot, gf, lane);
+      __syncwarp();
+      __threadfence_block();
+      if (lane == 0) *rprog = f0 + f + gf;
+    }
+  }
+}
+
+// (xc @ R)_j - ref_j of one atom of a frame whose record is A, Bq, C
+// (R row-major, then com) and scale sc: the centred coordinates, the
+// rotation and the reference folded into one chain (add_frames' order).
+__device__ __forceinline__ void deviation(float q0, float q1, float q2,
+                                          float4 A, float4 Bq, float4 C,
+                                          float sc, const float r[3],
+                                          float dev[3]) {
+  const float xc0 = fmaf(q0, sc, -C.y);
+  const float xc1 = fmaf(q1, sc, -C.z);
+  const float xc2 = fmaf(q2, sc, -C.w);
+  dev[0] = fmaf(xc2, Bq.z, fmaf(xc1, A.w, fmaf(xc0, A.x, -r[0])));
+  dev[1] = fmaf(xc2, Bq.w, fmaf(xc1, Bq.x, fmaf(xc0, A.y, -r[1])));
+  dev[2] = fmaf(xc2, C.x, fmaf(xc1, Bq.y, fmaf(xc0, A.z, -r[2])));
+}
+
+// The moments of four atoms over the gf frames of a pass-B box: x0 is the
+// atoms' first component in frame 0, rows of `row` elements, `plane`
+// elements a component; fr4 the frames' records (R, com, scale, fmask).
+// A frame of weight 1 (the frame mask's common case) skips the product
+// by the weight: dev * 1 is dev, bit for bit.
+template <typename T>
+__device__ __forceinline__ void moments4(const float4* fr4, const T* x0,
+                                         int gf, int row, int plane,
+                                         const float r[4][3], float sd[4][3],
+                                         float sq[4][3]) {
+#pragma unroll 2
+  for (int f = 0; f < gf; ++f) {
+    const float4 A = fr4[f * 4];        // R00 R01 R02 R10
+    const float4 Bq = fr4[f * 4 + 1];   // R11 R12 R20 R21
+    const float4 C = fr4[f * 4 + 2];    // R22 com0 com1 com2
+    const float4 D = fr4[f * 4 + 3];    // scale fmask
+    const T* xf = x0 + f * row;
+    float q0[4], q1[4], q2[4];
+    load4(xf, q0);
+    load4(xf + plane, q1);
+    load4(xf + 2 * plane, q2);
+    if (D.y == 1.0f) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float dev[3];
+        deviation(q0[e], q1[e], q2[e], A, Bq, C, D.x, r[e], dev);
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          sd[e][j] += dev[j];
+          sq[e][j] += dev[j] * dev[j];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float dev[3];
+        deviation(q0[e], q1[e], q2[e], A, Bq, C, D.x, r[e], dev);
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const float dm = dev[j] * D.y;
+          sd[e][j] += dm;
+          sq[e][j] += dm * dev[j];
+        }
+      }
+    }
   }
 }
 
 // The 12 compute warps (w = warp - 1): pass A, then pass B.
 template <typename T>
-__device__ void wide_compute(const Args& a, const T* ring, const float* frot,
-                             uint64_t* full, uint64_t* empty, uint64_t* rfull,
-                             uint64_t* rempty, volatile int* sprog, int ng,
-                             int nck, int s0, int ns, int warp, int lane) {
+__device__ __forceinline__ void wide_compute(
+    const Args& a, const unsigned char* ring, const float* table,
+    uint64_t* full, uint64_t* empty, volatile int* sprog,
+    volatile int* rprog, uint64_t* tfree, int s0, int ns, int warp,
+    int lane) {
+  const WideShape sh = wide_shape(a, ns);
   const int G = a.group;
   const int ck = a.chunk;
   const int nst = a.stages;
   const int nblk = a.blocks;
   const int w = warp - kFirstSumWarp;
-  const size_t plane = static_cast<size_t>(G) * ck;
-  const int na = ng * nck;
+  const int plane = G * ck;
+  int u = 0;
 
-  // ---- pass A: frames fa and fb of each group, their sums carried over
-  // the chunks and published after the last
-  const int fa = w, fb = w + kComputeWarps;
-  float sa[12], sb[12];
-  for (int u = 0; u < na; ++u) {
-    const int g = u / nck;
-    const int c = u - g * nck;
-    const int stage = u % nst;
-    mbar_wait(&full[stage], (u / nst) & 1);
+  // ---- pass A: frame w of each group (one a compute warp), lanes over
+  // the chunk's 4-atom runs with w and ref from the stage; the frame's 12
+  // sums carried over the chunks in registers and published after the
+  // last
+  for (int g = 0; g < sh.ng; ++g) {
     const int gf = min(G, a.B - g * G);
-    if (c == 0) {
+    float sa[12];
 #pragma unroll
-      for (int k = 0; k < 12; ++k) {
-        sa[k] = 0.0f;
-        sb[k] = 0.0f;
+    for (int k = 0; k < 12; ++k) sa[k] = 0.0f;
+    for (int c = 0; c < sh.nc; ++c, ++u) {
+      const int st = u % nst;
+      mbar_wait(&full[st], (u / nst) & 1);
+      const unsigned char* base = ring + static_cast<size_t>(st) * a.stage_bytes;
+      const T* x = reinterpret_cast<const T*>(base);
+      const float4* pw =
+          reinterpret_cast<const float4*>(base + 3 * plane * sizeof(T));
+      const float4* pr = pw + ck / 4;   // ref, 12 floats a 4-atom run
+      const int nch = min(ck, ns - c * ck) / 4;
+      if (w < gf) {
+        const T* xa = x + w * ck;
+        for (int j = lane; j < nch; j += 32) {
+          const float4 wv = pw[j];
+          const float4 r0 = pr[3 * j], r1 = pr[3 * j + 1], r2 = pr[3 * j + 2];
+          const float p[16] = {wv.x, wv.y, wv.z, wv.w,
+                               r0.x, r0.w, r1.z, r2.y,
+                               r0.y, r1.x, r1.w, r2.z,
+                               r0.z, r1.y, r2.x, r2.w};
+          chunk_sums(xa, xa + plane, xa + 2 * plane, j, p, sa);
+        }
       }
+      warp_arrive(&empty[st], lane);
     }
-    const int c0 = c * ck;
-    const int nch = min(ck, ns - c0) / 4;
-    const T* base = ring + static_cast<size_t>(stage) * 3 * plane;
-    if (fa < gf) {
-      const bool two = fb < gf;
-      const T* xa = base + static_cast<size_t>(fa) * ck;
-      const T* xb = base + static_cast<size_t>(two ? fb : fa) * ck;
-      for (int j = lane; j < nch; j += 32) {
-        // w and ref of atoms s..s+3 in four 16-byte loads (s % 4 == 0;
-        // the wrapper requires w and ref 16-byte aligned): ref's 12
-        // interleaved floats de-interleaved in registers
-        const size_t s = static_cast<size_t>(s0) + c0 + 4 * j;
-        const float4 wv = __ldg(reinterpret_cast<const float4*>(a.w + s));
-        const float4* rp = reinterpret_cast<const float4*>(a.ref + 3 * s);
-        const float4 r0 = __ldg(rp), r1 = __ldg(rp + 1), r2 = __ldg(rp + 2);
-        const float p[16] = {wv.x, wv.y, wv.z, wv.w,
-                             r0.x, r0.w, r1.z, r2.y,
-                             r0.y, r1.x, r1.w, r2.z,
-                             r0.z, r1.y, r2.x, r2.w};
-        chunk_sums(xa, xa + plane, xa + 2 * plane, j, p, sa);
-        if (two) chunk_sums(xb, xb + plane, xb + 2 * plane, j, p, sb);
-      }
+    const int k = (lane >> 1) & 15;
+    if (w < gf) {
+      const float v = reduce12(sa, lane);
+      if ((lane & 1) == 0 && k < 12)
+        st_relaxed(a.part + ((static_cast<size_t>(g) * G + w) * 12 + k) *
+                                nblk + blockIdx.x,
+                   v);
     }
-    warp_arrive(&empty[stage], lane);
-    if (c == nck - 1) {
-      const int k = (lane >> 1) & 15;
-      const bool writer = (lane & 1) == 0 && k < 12;
-      if (fa < gf) {
-        const float va = reduce12(sa, lane);
-        if (writer)
-          st_relaxed(a.part + ((static_cast<size_t>(g) * G + fa) * 12 + k) *
-                                  nblk + blockIdx.x,
-                     va);
-      }
-      if (fb < gf) {
-        const float vb = reduce12(sb, lane);
-        if (writer)
-          st_relaxed(a.part + ((static_cast<size_t>(g) * G + fb) * 12 + k) *
-                                  nblk + blockIdx.x,
-                     vb);
-      }
-      // the frame solver's hint reads the first kSumWarps warps
-      if (lane == 0 && w < kSumWarps) sprog[w] = g + 1;
-    }
+    // the frame solver's hint reads the first kSumWarps warps
+    if (lane == 0 && w < kSumWarps) sprog[w] = g + 1;
   }
 
-  // ---- pass B: atoms i and i + 1 of each chunk, their moments carried
-  // over the groups and written after the last
-  const int i = 2 * (threadIdx.x - kFirstSumWarp * 32);
-  float sd[2][3], sq[2][3], r[2][3];
-  for (int v = 0; v < nck * ng; ++v) {
-    const int c = v / ng;
-    const int g = v - c * ng;
-    const int u = na + v;
-    const int stage = u % nst;
-    const int rb = v % kRotBuffers;
-    const int c0 = c * ck;
-    const bool mine = i < min(ck, ns - c0);
-    const size_t s = static_cast<size_t>(s0) + c0 + i;
-    if (g == 0) {
+  // ---- pass B: window by window of records, atoms i..i+3 of each chunk,
+  // their moments carried over the window's groups in registers and
+  // stored after its last (amask applied after the last window); the
+  // first chunk of a window waits for each group's records
+  const int ct = threadIdx.x - kFirstSumWarp * 32;
+  const int i = 4 * ct;
+  const int per_box = a.chunk_b / a.nbox_b;
+  const int kb = i / per_box;                     // the box of the atoms
+  const size_t slot =
+      wide_box_b_bytes(a.group_b, a.chunk_b, a.nbox_b, sizeof(T));
+  const int plane_b = a.group_b * per_box;
+  const size_t S = a.S;
+  for (int wi = 0; wi < sh.nw; ++wi) {
+    const int nf = window_frames(a, wi);
+    const int ngw = (nf + a.group_b - 1) / a.group_b;
+    const bool last = wi == sh.nw - 1;
+    for (int c = 0; c < sh.ncb; ++c) {
+      const bool mine = i < min(a.chunk_b, ns - c * a.chunk_b);
+      const size_t s = static_cast<size_t>(s0) + c * a.chunk_b + i;
+      float sd[4][3], sq[4][3], r[4][3];
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
+      for (int e = 0; e < 4; ++e) {
 #pragma unroll
         for (int q = 0; q < 3; ++q) {
           sd[e][q] = 0.0f;
           sq[e][q] = 0.0f;
-          r[e][q] = mine ? __ldg(a.ref + 3 * (s + e) + q) : 0.0f;
+          r[e][q] = 0.0f;
         }
       }
-    }
-    mbar_wait(&full[stage], (u / nst) & 1);
-    mbar_wait(&rfull[rb], (v / kRotBuffers) & 1);
-    if (mine)
-      add_frames(reinterpret_cast<const float4*>(frot + rb * G * kRot),
-                 ring + static_cast<size_t>(stage) * 3 * plane + i,
-                 min(G, a.B - g * G), G, ck, r, sd, sq);
-    warp_arrive(&empty[stage], lane);
-    warp_arrive(&rempty[rb], lane);
-    if (g == ng - 1 && mine) {
+      if (mine) {
+        const float4* rp = reinterpret_cast<const float4*>(a.ref + 3 * s);
+        const float4 v0 = __ldg(rp), v1 = __ldg(rp + 1), v2 = __ldg(rp + 2);
+        const float rv[12] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y,
+                              v1.z, v1.w, v2.x, v2.y, v2.z, v2.w};
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float am = __ldg(a.amask + s + e);
+        for (int e = 0; e < 4; ++e) {
+#pragma unroll
+          for (int q = 0; q < 3; ++q) r[e][q] = rv[3 * e + q];
+        }
+        if (wi > 0) {
+          // the sums of the windows before, as stored after the last
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            const float4 d = *reinterpret_cast<const float4*>(a.out + q * S + s);
+            const float4 e2 =
+                *reinterpret_cast<const float4*>(a.out + (3 + q) * S + s);
+            sd[0][q] = d.x; sd[1][q] = d.y; sd[2][q] = d.z; sd[3][q] = d.w;
+            sq[0][q] = e2.x; sq[1][q] = e2.y; sq[2][q] = e2.z; sq[3][q] = e2.w;
+          }
+        }
+      }
+      for (int g = 0; g < ngw; ++g, ++u) {
+        const int st = u % nst;
+        mbar_wait(&full[st], (u / nst) & 1);
+        if (c == 0) {
+          const int need = wi * a.records + min((g + 1) * a.group_b, nf);
+          if (lane == 0) {
+            const long long t0 = clock64();
+            while (*rprog < need) poll_pause(t0);
+            __threadfence_block();
+          }
+          __syncwarp();
+        }
+        if (mine)
+          moments4(reinterpret_cast<const float4*>(
+                       table + static_cast<size_t>(g) * a.group_b * kRot),
+                   reinterpret_cast<const T*>(
+                       ring + static_cast<size_t>(st) * a.stage_bytes +
+                       kb * slot) + (i - kb * per_box),
+                   min(a.group_b, nf - g * a.group_b), per_box, plane_b, r,
+                   sd, sq);
+        warp_arrive(&empty[st], lane);
+      }
+      if (mine) {
+        float4 am = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
+        if (last) am = __ldg(reinterpret_cast<const float4*>(a.amask + s));
+        const float m[4] = {am.x, am.y, am.z, am.w};
 #pragma unroll
         for (int q = 0; q < 3; ++q) {
-          a.out[q * static_cast<size_t>(a.S) + s + e] = sd[e][q] * am;
-          a.out[(3 + q) * static_cast<size_t>(a.S) + s + e] =
-              sq[e][q] * (am * am);
+          float d[4], e2[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            d[e] = last ? sd[e][q] * m[e] : sd[e][q];
+            e2[e] = last ? sq[e][q] * (m[e] * m[e]) : sq[e][q];
+          }
+          *reinterpret_cast<float4*>(a.out + q * S + s) =
+              make_float4(d[0], d[1], d[2], d[3]);
+          *reinterpret_cast<float4*>(a.out + (3 + q) * S + s) =
+              make_float4(e2[0], e2[1], e2[2], e2[3]);
         }
       }
     }
+    warp_arrive(tfree, lane);   // the window's table is read
   }
 }
 
@@ -816,7 +1042,7 @@ __device__ void wide_compute(const Args& a, const T* ring, const float* frot,
 // kWide selects the wide mode (a.chunk > 0).
 template <typename T, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1)
-fused_planar_kernel(const Args a) {
+fused_planar_kernel(const Args a, const __grid_constant__ WideMaps maps) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int G = a.group;
   const int slice = a.slice;
@@ -831,9 +1057,7 @@ fused_planar_kernel(const Args a) {
   float* frot = reinterpret_cast<float*>(smem + 512);   // 4 x G x kRot
   float* pw = reinterpret_cast<float*>(smem + fixed_bytes(G));
   float* acc = pw + 4 * slice;
-  // the wide mode has no per-atom area: its ring follows the header
-  T* ring = kWide ? reinterpret_cast<T*>(pw)
-                  : reinterpret_cast<T*>(acc + 6 * slice);
+  T* ring = reinterpret_cast<T*>(acc + 6 * slice);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -855,6 +1079,7 @@ fused_planar_kernel(const Args a) {
       mbar_init(&rempty[i], kReaders);
     }
     for (int i = 0; i < kSumWarps; ++i) sprog[i] = 0;
+    if constexpr (kWide) sprog[kSumWarps] = 0;   // records in (rprog)
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if constexpr (!kWide) {
@@ -871,19 +1096,22 @@ fused_planar_kernel(const Args a) {
   __syncthreads();   // the last block-wide barrier: roles split here
 
   if constexpr (kWide) {
-    // the wide mode's roles; its frame solver is the one below
-    const int nck = (ns + a.chunk - 1) / a.chunk;   // chunks of the slice
+    // the wide mode's roles; its frame solver is the one below.  Its
+    // layout: the records table after the barriers, then the ring; the
+    // table's progress after the sums' (rprog), its release on rempty[0]
+    unsigned char* wring = smem + wide_fixed_bytes(a.records);
+    volatile int* rprog = sprog + kSumWarps;
     if (warp == kLoaderWarp) {
-      wide_loader(a, ring, full, empty, ng, nck, s0, ns, lane);
+      if (lane == 0) wide_loader<T>(a, maps, wring, full, empty, s0, ns);
       return;
     }
     if (warp == kRotWarp) {
-      wide_rotations(a, frot, rfull, rempty, ng, nck, lane);
+      wide_records(a, frot, rprog, &rempty[0], lane);
       return;
     }
     if (warp != kSolverWarp) {
-      wide_compute(a, ring, frot, full, empty, rfull, rempty, sprog, ng,
-                   nck, s0, ns, warp, lane);
+      wide_compute<T>(a, wring, frot, full, empty, sprog, rprog, &rempty[0],
+                      s0, ns, warp, lane);
       return;
     }
   }
@@ -1133,9 +1361,10 @@ cudaError_t allow_full_smem() {
 // cooperative attribute: the same launch eagerly and under stream
 // capture, where it becomes a cooperative kernel node of the graph.
 template <typename T, bool kWide>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
+cudaError_t launch(const Args& a, const WideMaps& maps, cudaStream_t stream) {
   const long long smem =
-      kWide ? wide_smem_bytes(a.chunk, a.group, a.stages, sizeof(T))
+      kWide ? wide_fixed_bytes(a.records) +
+                  static_cast<long long>(a.stages) * a.stage_bytes
             : smem_bytes(a.slice, a.group, a.stages, sizeof(T));
   if (smem > kSmemMax) return cudaErrorInvalidValue;
   cudaError_t e = allow_full_smem<T, kWide>();
@@ -1150,7 +1379,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  void* params[] = {const_cast<Args*>(&a)};
+  void* params[] = {const_cast<Args*>(&a), const_cast<WideMaps*>(&maps)};
   e = cudaLaunchKernelExC(
       &cfg, reinterpret_cast<const void*>(fused_planar_kernel<T, kWide>),
       params);
@@ -1159,8 +1388,86 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 }
 
 template <typename T>
-cudaError_t launch_mode(const Args& a, cudaStream_t stream) {
-  return a.chunk > 0 ? launch<T, true>(a, stream) : launch<T, false>(a, stream);
+cudaError_t launch_mode(const Args& a, const WideMaps& maps,
+                        cudaStream_t stream) {
+  return a.chunk > 0 ? launch<T, true>(a, maps, stream)
+                     : launch<T, false>(a, maps, stream);
+}
+
+// cuTensorMapEncodeTiled, through the runtime's entry-point lookup (the
+// library links no libcuda stub); null where the installed CUDA lacks it.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static std::once_flag once;
+  static EncodeTiled fn = nullptr;
+  std::call_once(once, [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  });
+  return fn;
+}
+
+// The (3, B, S) planes as a 3-d tensor of 8-byte elements (a row of S
+// atoms is S * elem / 8 of them), boxes of `atoms` atoms x `frames`
+// frames x 3 components, no swizzle, zeros past the edges.
+cudaError_t planes_map(CUtensorMap* map, const void* qp, int B, int S,
+                       int elem, int atoms, int frames) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t row = static_cast<cuuint64_t>(S) * elem;
+  const cuuint64_t dim[3] = {row / 8, static_cast<cuuint64_t>(B), 3};
+  const cuuint64_t stride[2] = {row, row * B};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(atoms * elem / 8),
+                             static_cast<cuuint32_t>(frames), 3};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT64, 3,
+                        const_cast<void*>(qp), dim, stride, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The wide mode's fields of `a` from its geometry (chunk > 0): pass A's
+// (group, chunk) and pass B's (group_b, chunk_b) units, their boxes, the
+// records window and the stage.
+cudaError_t wide_args(Args& a, WideMaps& maps, int elem, int group_b,
+                      int chunk_b) {
+  if (a.group > kComputeWarps || a.chunk % 16 != 0 ||
+      a.chunk * elem > kBoxBytes || group_b < 1 ||
+      group_b > kMaxGroup || chunk_b < 16 || chunk_b % 16 != 0 ||
+      chunk_b > kWideChunkB) {
+    return cudaErrorInvalidValue;
+  }
+  const int nbox = (chunk_b * elem + kBoxBytes - 1) / kBoxBytes;
+  if (chunk_b % (16 * nbox) != 0) return cudaErrorInvalidValue;
+  a.group_b = group_b;
+  a.chunk_b = chunk_b;
+  a.nbox_b = nbox;
+  a.records = a.B < kWideRecords ? a.B : kWideRecords;
+  a.stage_bytes = static_cast<int>(
+      wide_stage_bytes(a.group, a.chunk, group_b, chunk_b, nbox, elem));
+  cudaError_t e = planes_map(&maps.a, a.qp, a.B, a.S, elem, a.chunk,
+                             a.group);
+  if (e == cudaSuccess)
+    e = planes_map(&maps.b, a.qp, a.B, a.S, elem, chunk_b / nbox, group_b);
+  return e;
 }
 
 }  // namespace
@@ -1170,25 +1477,30 @@ cudaError_t launch_mode(const Args& a, cudaStream_t stream) {
 // padded centred reference in its (S, 3) layout.  Geometry (from
 // ops/fused_planar.fused_geometry): `blocks` slices of `slice` atoms (the
 // last may be shorter), frames in groups of `group`, a ring of `stages`;
-// `chunk` 0 for the single-read form, else the wide mode's chunk (a
-// multiple of 16 up to kWideChunk atoms).  Scratch: part (B, 12, blocks)
-// then rot (B, 16) float32, every word 0xffffffff on entry.  Launches one
-// cooperative kernel on `stream` and returns its error (0 on success).
+// `chunk` 0 for the single-read form, else the wide mode's pass-A chunk
+// (a multiple of 16 atoms, at most 2048 bytes a row) and its pass-B units
+// of `group_b` frames x `chunk_b` atoms (a multiple of 16 up to
+// kWideChunkB, in boxes of at most 2048 bytes a row).  Scratch: part (B,
+// 12, blocks) then rot (B, 16) float32, every word 0xffffffff on entry.
+// Launches one cooperative kernel on `stream` and returns its error (0 on
+// success).
 extern "C" int mdtpu_fused_planar(const void* qp, int dtype, int B, int S,
                                   const float* inv, float inv_scalar,
                                   const float* w, const float* ref,
                                   const float* amask, const float* fmask,
                                   const float* sref, int slice, int blocks,
                                   int group, int stages, int chunk,
-                                  float* scratch, float* out, void* stream) {
+                                  int group_b, int chunk_b, float* scratch,
+                                  float* out, void* stream) {
   if (B < 1 || S < 16 || S % 16 != 0 || slice < 16 || slice % 16 != 0 ||
       blocks < 1 || blocks > kMaxBlocks || static_cast<long long>(blocks) * slice < S ||
       static_cast<long long>(blocks - 1) * slice >= S || group < 1 ||
-      group > kMaxGroup || stages < 2 || stages > kMaxStages ||
-      chunk < 0 || chunk % 16 != 0 || chunk > kWideChunk) {
+      group > kMaxGroup || stages < 2 || stages > kMaxStages || chunk < 0 ||
+      dtype < 0 || dtype > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Args a;
+  Args a = {};
+  WideMaps maps = {};
   a.qp = qp;
   a.B = B;
   a.S = S;
@@ -1207,20 +1519,20 @@ extern "C" int mdtpu_fused_planar(const void* qp, int dtype, int B, int S,
   a.part = scratch;
   a.rot = scratch + static_cast<size_t>(B) * 12 * blocks;
   a.out = out;
+  const int elem = dtype == 0 ? 2 : (dtype == 1 ? 1 : 4);
+  cudaError_t e =
+      chunk > 0 ? wide_args(a, maps, elem, group_b, chunk_b) : cudaSuccess;
+  if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
   switch (dtype) {
     case 0:
-      e = launch_mode<int16_t>(a, st);
+      e = launch_mode<int16_t>(a, maps, st);
       break;
     case 1:
-      e = launch_mode<int8_t>(a, st);
-      break;
-    case 2:
-      e = launch_mode<float>(a, st);
+      e = launch_mode<int8_t>(a, maps, st);
       break;
     default:
-      e = cudaErrorInvalidValue;
+      e = launch_mode<float>(a, maps, st);
   }
   return static_cast<int>(e);
 }

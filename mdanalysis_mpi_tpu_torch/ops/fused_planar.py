@@ -31,8 +31,9 @@ per-frame rotation solved by QCP inside the sweep.
   a slice of atoms (a multiple of 16), frames in groups of ``group``
   copied into a ring of ``stages`` shared-memory stages.  Above
   :func:`fused_max_atoms` a slice no longer fits two stages, and the
-  geometry takes the kernel's wide mode: a fifth entry, ``chunk``, the
-  atoms of the slice a stage holds, with the block read twice.
+  geometry takes the kernel's wide mode, with the block read twice: three
+  more entries, pass A's ``chunk`` and pass B's ``group_b`` frames of
+  ``chunk_b`` atoms, the units its stages hold.
 
 The kernel replaces ``mdanalysis_mpi_tpu/ops/pallas_fused.py::
 _build_planar`` (``pl.pallas_call`` at :289).  The function is bound by
@@ -59,21 +60,28 @@ from mdanalysis_mpi_tpu_torch.ops.align import qcp_rotation
 
 _DTYPE_CODES = {torch.int16: 0, torch.int8: 1, torch.float32: 2}
 _ITEMSIZE = {torch.int16: 2, torch.int8: 1, torch.float32: 4}
-# launch geometry of csrc/fused_rmsf.cu (fused_smem_bytes counts its
-# layout; its entry point refuses a geometry that does not fit, and
-# tests/test_torch_cuda.py holds the two together at the limit): shared
-# memory a block may use on Hopper, the slice granule, the stage ring's
-# bounds, the most blocks its frame solver takes, and the group's target
-# of 24 bytes per atom-row (12 int16, 24 int8, 6 float32 frames); the
-# wide mode's largest chunk (two atoms a compute thread, kWideChunk) and
-# the stages its chunk is sized for
+# launch geometry of csrc/fused_rmsf.cu (fused_smem_bytes and
+# wide_smem_bytes count its layouts; its entry point refuses a geometry
+# that does not fit, and tests/test_torch_cuda.py holds the two together
+# at the limit): shared memory a block may use on Hopper, the slice
+# granule, the stage ring's bounds, the most blocks its frame solver
+# takes, the largest frame group, and the group's target of 24 bytes per
+# atom-row (12 int16, 24 int8, 6 float32 frames).  The wide mode's: pass
+# B's largest chunk (four atoms a compute thread, kWideChunkB), the bytes
+# of a box row (256 eight-byte elements, kBoxBytes), the frames of
+# records a block holds (kWideRecords), pass A's group (a frame a
+# compute warp) and the stages its units are sized for
 SMEM_MAX = 232_448
 SLICE_ATOMS = 16
 MAX_STAGES = 12
 MAX_BLOCKS = 160
+MAX_GROUP = 24
 _MIN_STAGES = 3
 _GROUP_ROW_BYTES = 24
-WIDE_CHUNK = 768
+WIDE_CHUNK_B = 1536
+WIDE_BOX_BYTES = 2048
+WIDE_RECORDS = 512
+WIDE_GROUP = 12
 _WIDE_STAGES = 4
 
 
@@ -137,17 +145,47 @@ def _check(name, t, shape, device):
 
 
 def fused_smem_bytes(slice_atoms: int, group: int, stages: int,
-                     itemsize: int, chunk: int = 0) -> int:
-    """Shared memory of one block (``smem_bytes`` in the CUDA source):
-    512 B of barriers and four 64-byte rotation records a frame of the
-    group; 40 B an atom of parameters and accumulators; the stage
-    ring.  With a ``chunk`` (the wide mode, ``wide_smem_bytes``) the
-    ring's stages hold ``chunk`` atoms and there is no per-atom area."""
-    fixed = 512 + 256 * group
-    if chunk:
-        return fixed + stages * 3 * group * chunk * itemsize
-    return fixed + 40 * slice_atoms + stages * 3 * group * slice_atoms \
-        * itemsize
+                     itemsize: int) -> int:
+    """Shared memory of one block of the single-read form (``smem_bytes``
+    in the CUDA source): 512 B of barriers and four 64-byte rotation
+    records a frame of the group; 40 B an atom of parameters and
+    accumulators; the stage ring."""
+    return 512 + 256 * group + 40 * slice_atoms \
+        + stages * 3 * group * slice_atoms * itemsize
+
+
+def _round128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def _wide_fixed_bytes(B: int) -> int:
+    """The wide mode's barriers and records window (``wide_fixed_bytes``)."""
+    return 512 + _round128(min(B, WIDE_RECORDS) * 64)
+
+
+def wide_boxes(chunk_b: int, itemsize: int) -> int:
+    """Boxes of pass B's chunk: rows of at most ``WIDE_BOX_BYTES``."""
+    return -(-chunk_b * itemsize // WIDE_BOX_BYTES)
+
+
+def wide_stage_bytes(group: int, chunk: int, group_b: int, chunk_b: int,
+                     itemsize: int) -> int:
+    """A stage of the wide mode (``wide_stage_bytes``): pass A's box of
+    ``(3, group, chunk)`` with the chunk's w and ref (16 B an atom), or
+    pass B's boxes of ``(3, group_b, chunk_b / boxes)``, each at a
+    128-byte boundary."""
+    nbox = wide_boxes(chunk_b, itemsize)
+    pass_a = 3 * group * chunk * itemsize + 16 * chunk
+    pass_b = nbox * _round128(3 * group_b * (chunk_b // nbox) * itemsize)
+    return _round128(max(pass_a, pass_b))
+
+
+def wide_smem_bytes(B: int, group: int, chunk: int, group_b: int,
+                    chunk_b: int, stages: int, itemsize: int) -> int:
+    """Shared memory of one block of the wide mode: barriers, the records
+    of a window of ``min(B, WIDE_RECORDS)`` frames, the ring."""
+    return _wide_fixed_bytes(B) + stages * wide_stage_bytes(
+        group, chunk, group_b, chunk_b, itemsize)
 
 
 def fused_max_atoms(itemsize: int, n_sm: int) -> int:
@@ -161,22 +199,52 @@ def fused_max_atoms(itemsize: int, n_sm: int) -> int:
     return slice_max * n_sm // 256 * 256
 
 
+def _wide_geometry(B: int, itemsize: int, per: int):
+    """The wide mode's units for slices of ``per`` granules: pass A's
+    ``(group, chunk)``, pass B's ``(group_b, chunk_b)`` and the ring's
+    stages (see :func:`fused_geometry`)."""
+    room = SMEM_MAX - _wide_fixed_bytes(B)
+    stage_max = room // _WIDE_STAGES // 128 * 128
+    # pass B: the slice in the fewest chunks of at most WIDE_CHUNK_B atoms,
+    # as even as granules allow, each chunk in boxes of equal rows
+    most = WIDE_CHUNK_B // SLICE_ATOMS
+    gran = -(-per // -(-per // most))
+    nbox = wide_boxes(gran * SLICE_ATOMS, itemsize)
+    chunk_b = SLICE_ATOMS * nbox * -(-gran // nbox)
+    group_b = max(g for g in range(1, min(B, MAX_GROUP) + 1)
+                  if nbox * _round128(3 * g * (chunk_b // nbox) * itemsize)
+                  <= stage_max)
+    # pass A: a frame a compute warp, the chunk a multiple of 128 atoms
+    # (four a lane) that fills the stage, one box row at most
+    group = min(B, WIDE_GROUP)
+    chunk = min(WIDE_BOX_BYTES // itemsize,
+                stage_max // (3 * group * itemsize + 16) // 128 * 128)
+    stage = wide_stage_bytes(group, chunk, group_b, chunk_b, itemsize)
+    return group, min(MAX_STAGES, room // stage), chunk, group_b, chunk_b
+
+
 @functools.lru_cache(maxsize=256)
 def fused_geometry(B: int, S: int, itemsize: int, n_sm: int):
     """Launch geometry ``(slice, blocks, group, stages)`` for ``B``
     frames of ``S`` atoms of ``itemsize`` bytes on ``n_sm`` SMs, or
-    ``(slice, blocks, group, stages, chunk)`` in the wide mode.
+    ``(slice, blocks, group, stages, chunk, group_b, chunk_b)`` in the
+    wide mode.
 
     ``slice`` is the least multiple of 16 atoms that covers ``S`` in at
     most ``n_sm`` blocks (the last block's slice may be shorter); the
     group is the largest up to 24 bytes an atom-row (and at most ``B``)
     that leaves room for three stages, then the ring takes up to twelve.
     Above :func:`fused_max_atoms` the single-read form does not fit, and
-    the wide mode streams each slice in chunks: the group is 24 int8 or
-    12 wider frames (at most ``B``), the chunk the most even split of the
-    slice into multiples of 16 atoms, at most 768, that fits four stages,
-    then the ring takes up to twelve.  Raises ``ValueError`` unless ``S %
-    256 == 0``."""
+    the wide mode streams each slice twice through a ring of stages in
+    units a tensor-map box each.  Pass A's unit is ``group`` frames (12,
+    at most ``B``) of ``chunk`` atoms, the multiple of 128 that fills a
+    quarter of the room beside the records window with w and ref, at
+    most 2,048 bytes a row; pass B's is ``group_b`` frames of
+    ``chunk_b`` atoms, the most even split of the slice into at most
+    1,536 atoms (four a compute thread) in boxes of at most 2,048 bytes a
+    row, with the most frames up to 24 that fill that quarter.  The ring
+    then takes as many stages as fit, up to twelve.  Raises
+    ``ValueError`` unless ``S % 256 == 0``."""
     n_sm = min(n_sm, MAX_BLOCKS)
     if S < 256 or S % 256:
         raise ValueError(
@@ -186,15 +254,7 @@ def fused_geometry(B: int, S: int, itemsize: int, n_sm: int):
     slice_atoms = SLICE_ATOMS * per
     blocks = -(-S // slice_atoms)
     if S > fused_max_atoms(itemsize, n_sm):
-        group = min(24 if itemsize == 1 else 12, B)
-        room = SMEM_MAX - fused_smem_bytes(0, group, 0, itemsize)
-        row = 3 * group * itemsize          # a stage's bytes an atom
-        most = min(WIDE_CHUNK, room // (_WIDE_STAGES * row)
-                   // SLICE_ATOMS * SLICE_ATOMS)
-        n_chunks = -(-slice_atoms // most)
-        chunk = SLICE_ATOMS * -(-per // n_chunks)
-        return (slice_atoms, blocks, group,
-                min(MAX_STAGES, room // (row * chunk)), chunk)
+        return (slice_atoms, blocks) + _wide_geometry(B, itemsize, per)
     for group in range(min(_GROUP_ROW_BYTES // itemsize, B), 0, -1):
         room = SMEM_MAX - fused_smem_bytes(slice_atoms, group, 0, itemsize)
         stages = room // (3 * group * slice_atoms * itemsize)
@@ -225,14 +285,15 @@ def _launch(qp, inv_scale, wN, refc_p, amask, sref, fmask):
         raise ValueError(f"fused kernel: empty block {tuple(qp.shape)}")
     geometry = fused_geometry(B, S, _ITEMSIZE[qp.dtype], _sm_count(dev))
     slice_atoms, blocks, group, stages = geometry[:4]
-    chunk = geometry[4] if len(geometry) > 4 else 0
+    chunk, group_b, chunk_b = geometry[4:] if len(geometry) > 4 else (0,) * 3
     _check("wN", wN, (S,), dev)
     _check("refc_p", refc_p, (S, 3), dev)
-    if wN.data_ptr() % 16 or refc_p.data_ptr() % 16:
-        raise ValueError(
-            "fused kernel: wN and refc_p must be 16-byte aligned (the "
-            "wide mode reads them four atoms at a time)")
     _check("amask", amask, (S,), dev)
+    if wN.data_ptr() % 16 or refc_p.data_ptr() % 16 \
+            or amask.data_ptr() % 16:
+        raise ValueError(
+            "fused kernel: wN, refc_p and amask must be 16-byte aligned "
+            "(the wide mode reads them four atoms at a time)")
     _check("sref", sref, (3,), dev)
     _check("fmask", fmask, (B,), dev)
     if isinstance(inv_scale, (torch.Tensor, np.ndarray)) \
@@ -266,7 +327,8 @@ def _launch(qp, inv_scale, wN, refc_p, amask, sref, fmask):
             qp.data_ptr(), _DTYPE_CODES[qp.dtype], B, S, inv_ptr,
             ctypes.c_float(inv_scalar), wN.data_ptr(), refc_p.data_ptr(),
             amask.data_ptr(), fmask.data_ptr(), sref.data_ptr(),
-            slice_atoms, blocks, group, stages, chunk, scratch.data_ptr(),
+            slice_atoms, blocks, group, stages, chunk, group_b, chunk_b,
+            scratch.data_ptr(),
             out.data_ptr(), stream)
     if rc != 0:
         raise _build.KernelLaunchError(

@@ -15,7 +15,9 @@ JAX, so it runs on a GPU machine that has no JAX:
   device tensor, a launch on a side stream (bit-identical to the
   default stream's), the wrapper raising for S % 256 != 0, and the wide
   mode beyond the single-read form's shared-memory limit: the first
-  wide S of each dtype and S = 1,048,576 against the plain version, an
+  wide S of each dtype and S = 1,048,576 against the plain version, the
+  edges of its unit order (a short last frame group, short last chunks
+  of both passes, three windows of records), an
   int8 block of more than 2^31 elements against the plain version
   summed over frame chunks, a CUDA-graph replay and its kernel nodes,
   and AlignedRMSF at 700,160 atoms against the generic engine.
@@ -273,12 +275,64 @@ def test_cuda_wide_mode_matches_plain(dtype, width):
     itemsize = {"int16": 2, "int8": 1, "float32": 4}[dtype]
     S = (fp.fused_max_atoms(itemsize, sms) + 256 if width == "first-wide"
          else int(width))
-    assert len(fp.fused_geometry(13, S, itemsize, sms)) == 5
+    assert len(fp.fused_geometry(13, S, itemsize, sms)) == 7
     args, T = _card_case(13, S, dtype, dev, seed=S, valid_b=11)
     n0 = fp.planar_sums.launches
     out = fp.planar_sums(*args)
     again = fp.planar_sums(*args)
     plain = fp.planar_sums_plain(*args)
+    torch.cuda.synchronize()
+    assert fp.planar_sums.launches == n0 + 2
+    assert torch.equal(out, again)
+    _assert_moments_close(out, plain, T)
+
+
+def _short_last_chunks(itemsize, sms, B):
+    """The least wide S above the single-read limit whose slices end in a
+    short chunk of both passes → (S, geometry)."""
+    S = fp.fused_max_atoms(itemsize, sms)
+    while True:
+        S += 256
+        geometry = fp.fused_geometry(B, S, itemsize, sms)
+        slice_atoms, chunk, chunk_b = geometry[0], geometry[4], geometry[6]
+        if slice_atoms % chunk and slice_atoms % chunk_b:
+            return S, geometry
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["last-group-short", "short-chunks-int16",
+                                  "short-chunks-int8",
+                                  "short-chunks-float32", "three-windows"])
+def test_cuda_wide_mode_unit_order_edges(case):
+    """The wide mode's unit order at its edges, against the plain version
+    (summed over frame chunks in float64), one launch a call and two
+    launches bit for bit: B = 509 at S = 1,048,576, whose last group of
+    either pass is cut short; a wide S whose slices end in a short chunk
+    of both passes, each dtype; and B = 1,100, three windows of records
+    whose sums wait in the output between them.  A masked frame tail
+    and per-frame scales throughout."""
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    dtype = {"last-group-short": "int16", "three-windows": "int8"}.get(
+        case, case.rsplit("-", 1)[-1])
+    itemsize = {"int16": 2, "int8": 1, "float32": 4}[dtype]
+    B = 1100 if case == "three-windows" else 509
+    if case == "last-group-short":
+        S = 1_048_576
+        geometry = fp.fused_geometry(B, S, itemsize, sms)
+        assert B % geometry[2] and B % geometry[5]
+    elif case == "three-windows":
+        S = fp.fused_max_atoms(itemsize, sms) + 256
+        geometry = fp.fused_geometry(B, S, itemsize, sms)
+        assert -(-B // fp.WIDE_RECORDS) == 3
+    else:
+        S, geometry = _short_last_chunks(itemsize, sms, B)
+    assert len(geometry) == 7
+    args, T = _card_case(B, S, dtype, dev, seed=B + S, valid_b=B - 3)
+    n0 = fp.planar_sums.launches
+    out = fp.planar_sums(*args)
+    again = fp.planar_sums(*args)
+    plain = _plain_by_frames(args)
     torch.cuda.synchronize()
     assert fp.planar_sums.launches == n0 + 2
     assert torch.equal(out, again)

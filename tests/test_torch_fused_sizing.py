@@ -10,8 +10,11 @@ atoms (16-byte rows for every dtype), a block's shared memory within
 the 232,448 bytes Hopper allows, at least one frame a group, at most
 one block per SM, and the wrapper's limit (``S % 256 == 0``).  Above
 :func:`fused_max_atoms` (the single-read form's limit) the geometry is
-the kernel's wide mode, whose fifth entry is the chunk of a slice a
-stage holds: the chunks cover each slice, and the ring of chunks fits.
+the kernel's wide mode, whose last three entries are pass A's chunk and
+pass B's frames and chunk, each unit one tensor-map box a stage holds:
+the chunks of either pass cover each slice, the boxes' rows are whole
+16-byte runs of at most 2,048 bytes, and the ring of units fits beside
+the window of records.
 That the kernel's own layout agrees with this sizing is held on the
 card (tests/test_torch_cuda.py: a launch at the limit goes through, one
 more stage is refused; the first wide S of each dtype runs).
@@ -53,26 +56,39 @@ def test_main_shape_geometry():
     assert fp.fused_smem_bytes(384, 12, 7, 2) == 212_480
 
 
+def _chunks(owned, chunk):
+    return [min(chunk, owned - c0) for c0 in range(0, owned, chunk)]
+
+
 def _assert_wide_fits(B, S, itemsize, n_sm):
     """The wide geometry: every atom in exactly one slice, every slice
-    covered by its chunks in order, at most one block per SM, and the
-    ring of chunks within the shared memory a block may use."""
+    covered by each pass's chunks in order, at most one block per SM,
+    pass A's chunk a multiple of 128 atoms (four a lane) in one box row
+    and pass B's in equal box rows of whole granules, and the ring of
+    units beside the records window within the shared memory a block may
+    use."""
     geometry = fp.fused_geometry(B, S, itemsize, n_sm)
-    assert len(geometry) == 5
-    slice_atoms, blocks, group, stages, chunk = geometry
+    assert len(geometry) == 7
+    slice_atoms, blocks, group, stages, chunk, group_b, chunk_b = geometry
     assert slice_atoms % fp.SLICE_ATOMS == 0
     assert (blocks - 1) * slice_atoms < S <= blocks * slice_atoms
     assert blocks <= min(n_sm, fp.MAX_BLOCKS)
-    assert chunk % fp.SLICE_ATOMS == 0 and 16 <= chunk <= fp.WIDE_CHUNK
+    assert chunk % 128 == 0 and chunk * itemsize <= fp.WIDE_BOX_BYTES
+    nbox = fp.wide_boxes(chunk_b, itemsize)
+    assert 16 <= chunk_b <= fp.WIDE_CHUNK_B
+    assert chunk_b % (fp.SLICE_ATOMS * nbox) == 0
+    assert chunk_b // nbox * itemsize <= fp.WIDE_BOX_BYTES
     # every block but the last owns a whole slice
     for owned in {slice_atoms, S - (blocks - 1) * slice_atoms}:
-        chunks = [min(chunk, owned - c0) for c0 in range(0, owned, chunk)]
-        assert sum(chunks) == owned and min(chunks) > 0
-        assert all(n % fp.SLICE_ATOMS == 0 for n in chunks)
-    assert 1 <= group <= min(B, 24 if itemsize == 1 else 12)
+        for size in (chunk, chunk_b):
+            chunks = _chunks(owned, size)
+            assert sum(chunks) == owned and min(chunks) > 0
+            assert all(n % fp.SLICE_ATOMS == 0 for n in chunks)
+    assert 1 <= group <= min(B, fp.WIDE_GROUP)
+    assert 1 <= group_b <= min(B, fp.MAX_GROUP)
     assert 2 <= stages <= fp.MAX_STAGES
-    assert fp.fused_smem_bytes(slice_atoms, group, stages, itemsize,
-                               chunk) <= fp.SMEM_MAX
+    assert fp.wide_smem_bytes(B, group, chunk, group_b, chunk_b, stages,
+                              itemsize) <= fp.SMEM_MAX
     return geometry
 
 
@@ -93,7 +109,8 @@ def test_limit_is_exact(itemsize, n_sm):
     slice_above = 16 * -(-(above // 16) // n_sm)
     assert fp.fused_smem_bytes(slice_above, 1, 2, itemsize) > fp.SMEM_MAX
     geometry = _assert_wide_fits(512, above, itemsize, n_sm)
-    assert geometry[0] == slice_above and geometry[4] < slice_above
+    assert geometry[0] == slice_above
+    assert max(geometry[4], geometry[6]) < slice_above
 
 
 @pytest.mark.parametrize("n_sm", [114, 132])
@@ -106,7 +123,7 @@ def test_wide_geometry_from_the_limit_to_4m_atoms(itemsize, n_sm):
     limit = fp.fused_max_atoms(itemsize, n_sm)
     for S in range(limit + 256, 4_194_304 + 1, 256):
         _assert_wide_fits(512, S, itemsize, n_sm)
-    for B in (1, 5, 13, 25):
+    for B in (1, 5, 13, 25, 509, 1024, 1500):
         for S in (limit + 256, limit + 768, 1_048_576, 4_194_304):
             _assert_wide_fits(B, S, itemsize, n_sm)
 
@@ -124,6 +141,21 @@ def test_every_width_below_the_limit_keeps_the_single_read_form(itemsize,
         slice_atoms, _, group, stages = geometry
         assert fp.fused_smem_bytes(slice_atoms, group, stages,
                                    itemsize) <= fp.SMEM_MAX
+
+
+def test_wide_geometry_at_a_million_atoms():
+    """The worked sizing of the CUDA source's header: S = 1,048,576 on
+    132 SMs, B = 512 → 132 slices of 7,952 atoms; pass A 12 frames of
+    512 / 896 / 256 atoms (int16 / int8 / float32), pass B 6 / 12 / 3
+    frames of 1,344 / 1,328 / 1,344 atoms in 2 / 1 / 3 boxes, four
+    stages beside 32 KB of records."""
+    for itemsize, chunk, group_b, chunk_b, nbox in ((2, 512, 6, 1344, 2),
+                                                    (1, 896, 12, 1328, 1),
+                                                    (4, 256, 3, 1344, 3)):
+        assert fp.fused_geometry(512, 1_048_576, itemsize, 132) == (
+            7952, 132, 12, 4, chunk, group_b, chunk_b)
+        assert fp.wide_boxes(chunk_b, itemsize) == nbox
+    assert fp.wide_smem_bytes(512, 12, 512, 6, 1344, 4, 2) == 226_816
 
 
 def test_main_limits_on_132_sms():

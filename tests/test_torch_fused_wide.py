@@ -70,7 +70,7 @@ def _wide_case(B, S, dtype, valid_b, seed):
 def test_first_wide_width_matches_the_jax_package(dtype, itemsize):
     S = fp.fused_max_atoms(itemsize, 132) + 256
     # the card's kernel takes this width in its wide mode
-    assert len(fp.fused_geometry(6, S, itemsize, 132)) == 5
+    assert len(fp.fused_geometry(6, S, itemsize, 132)) == 7
     np_params, qp, inv, mask = _wide_case(6, S, dtype, valid_b=5, seed=S)
     wN, refc_p, _, amask, sref = np_params
     t_j, sd_j, sq_j = pf._core_planar(
