@@ -26,6 +26,7 @@ from mdanalysis_mpi_tpu_torch.ops import host
 from mdanalysis_mpi_tpu_torch.ops.moments import (merge_moments,
                                                   psum_moments,
                                                   rmsf_from_moments)
+from mdanalysis_mpi_tpu_torch.utils.timers import TIMERS
 
 
 # ---- module-level batch functions ----
@@ -463,15 +464,14 @@ class AlignedRMSF(AnalysisBase):
         try:
             with obs.span("run", analysis=type(self).__name__,
                           backend=backend_name):
-                with obs.span("pass", index=1,
-                              analysis="AverageStructure"):
+                with TIMERS.phase("pass1", analysis="AverageStructure"):
                     avg = self._make_pass1().run(
                         start, stop, step, frames=frames,
                         backend=backend, batch_size=batch_size,
                         resilient=resilient, **kwargs)
                 moments_pass = self._make_pass2(avg)
-                with obs.span("pass", index=2,
-                              analysis="_MomentsToReference"):
+                with TIMERS.phase("pass2",
+                                  analysis="_MomentsToReference"):
                     moments_pass.run(
                         start, stop, step, frames=frames,
                         backend=backend, batch_size=batch_size,

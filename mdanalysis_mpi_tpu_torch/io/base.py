@@ -8,7 +8,9 @@ import threading
 import numpy as np
 
 from mdanalysis_mpi_tpu_torch.core.timestep import Timestep
+from mdanalysis_mpi_tpu_torch.obs.metrics import METRICS
 from mdanalysis_mpi_tpu_torch.reliability import faults as _faults
+from mdanalysis_mpi_tpu_torch.utils.timers import TIMERS
 
 
 class BlockCache:
@@ -286,11 +288,30 @@ def planar_repack(q: np.ndarray) -> np.ndarray:
     consumes (ops/fused_planar.py).  This is THE one host copy the
     planar path pays — on quantized (int16/int8) bytes, behind the
     staging boundary, counted in
-    ``mdtpu_fused_planar_repacks_total``."""
+    ``mdtpu_fused_planar_repacks_total`` and timed as the ``repack``
+    phase."""
     from mdanalysis_mpi_tpu_torch import obs
 
     obs.METRICS.inc("mdtpu_fused_planar_repacks_total")
-    return np.ascontiguousarray(np.moveaxis(q, 2, 0))
+    with TIMERS.phase("repack"):
+        return np.ascontiguousarray(np.moveaxis(q, 2, 0))
+
+
+_NUMPY_FALLBACK_LOGGED = threading.Event()
+
+
+def note_numpy_fallback(exc: Exception) -> None:
+    """The native gather/quantize failed and NumPy stages the block:
+    counted every time, logged once a process (a host without the
+    native library stages every block this way, and more slowly)."""
+    METRICS.inc("mdtpu_stage_blocks_total", path="numpy")
+    if not _NUMPY_FALLBACK_LOGGED.is_set():
+        _NUMPY_FALLBACK_LOGGED.set()
+        from mdanalysis_mpi_tpu_torch.utils.log import get_logger
+
+        get_logger("mdtpu").warning(
+            "native staging unavailable (%s: %s); staging with NumPy",
+            type(exc).__name__, exc)
 
 
 def norm_quantize(quantize) -> str | None:
@@ -582,16 +603,19 @@ class ReaderBase:
             raise ValueError(
                 "layout='planar' requires quantized staging "
                 "(int16/int8); float32 blocks stay interleaved")
-        block, boxes = self.read_block(start, stop, sel=sel)
-        if qmode is None:
-            return block, boxes, None
-        if qmode == "int8":
-            from mdanalysis_mpi_tpu_torch.staging import quantize_block
+        with TIMERS.phase("gather"):
+            block, boxes = self.read_block(start, stop, sel=sel)
+            if qmode is None:
+                METRICS.inc("mdtpu_stage_blocks_total", path="generic")
+                return block, boxes, None
+            if qmode == "int8":
+                from mdanalysis_mpi_tpu_torch.staging import quantize_block
 
-            q, inv_scale = quantize_block(block, "int8")
-        else:
-            q, inv_scale = self._quantize_staged(
-                block, None, sel_fp=sel_fingerprint(sel))
+                q, inv_scale = quantize_block(block, "int8")
+                METRICS.inc("mdtpu_stage_blocks_total", path="numpy")
+            else:
+                q, inv_scale = self._quantize_staged(
+                    block, None, sel_fp=sel_fingerprint(sel))
         if layout == "planar":
             q = planar_repack(q)
         return q, boxes, inv_scale
@@ -610,7 +634,7 @@ class ReaderBase:
         scoped per selection content (``sel_fp``) so one wide-coordinate
         selection cannot coarsen another's resolution on the same
         reader.  Falls back to the NumPy reference path without the
-        native library.
+        native library (counted as ``path="numpy"``, logged once).
         """
         try:
             from mdanalysis_mpi_tpu_torch.io import native
@@ -625,15 +649,18 @@ class ReaderBase:
                 if vmax > hint:
                     hints[key] = vmax
                 if not overflowed:
+                    METRICS.inc("mdtpu_stage_blocks_total", path="native")
                     return q, np.float32(1.0 / scale)
             q, inv_scale = native.stage_gather_quantize(src, sel)
             # the exact kernel's scale encodes the block max: seed the hint
             hints[key] = max(hints.get(key, 0.0),
                              float(inv_scale) * self.QUANT_TARGET)
+            METRICS.inc("mdtpu_stage_blocks_total", path="native")
             return q, inv_scale
-        except Exception:
+        except Exception as exc:
             from mdanalysis_mpi_tpu_torch.staging import quantize_block
 
+            note_numpy_fallback(exc)
             return quantize_block(src if sel is None else src[:, sel])
 
     def stage_cached(self, start: int, stop: int,

@@ -11,7 +11,9 @@ from __future__ import annotations
 import numpy as np
 
 from mdanalysis_mpi_tpu_torch.core.timestep import Timestep
-from mdanalysis_mpi_tpu_torch.io.base import ReaderBase
+from mdanalysis_mpi_tpu_torch.io.base import ReaderBase, note_numpy_fallback
+from mdanalysis_mpi_tpu_torch.obs.metrics import METRICS
+from mdanalysis_mpi_tpu_torch.utils.timers import TIMERS
 
 
 class MemoryReader(ReaderBase):
@@ -138,22 +140,27 @@ class MemoryReader(ReaderBase):
                                           quantize=quantize)
         boxes = None if self._dims is None else self._dims[start:stop].copy()
         view = self._coords[start:stop]
-        if qmode == "int8":
-            # no fused native int8 kernel; quantize straight off the
-            # backing view (no intermediate read_block copy)
-            from mdanalysis_mpi_tpu_torch.staging import quantize_block
+        with TIMERS.phase("gather"):
+            if qmode == "int8":
+                # no fused native int8 kernel; quantize straight off the
+                # backing view (no intermediate read_block copy)
+                from mdanalysis_mpi_tpu_torch.staging import quantize_block
 
-            q, inv_scale = quantize_block(
-                view if sel is None else view[:, sel], "int8")
-            return q, boxes, inv_scale
-        if qmode is not None:
-            # adaptive one-pass gather+quantize (ReaderBase helper)
-            q, inv_scale = self._quantize_staged(view, sel)
-            return q, boxes, inv_scale
-        try:
-            from mdanalysis_mpi_tpu_torch.io import native
+                q, inv_scale = quantize_block(
+                    view if sel is None else view[:, sel], "int8")
+                METRICS.inc("mdtpu_stage_blocks_total", path="numpy")
+                return q, boxes, inv_scale
+            if qmode is not None:
+                # adaptive one-pass gather+quantize (ReaderBase helper)
+                q, inv_scale = self._quantize_staged(view, sel)
+                return q, boxes, inv_scale
+            try:
+                from mdanalysis_mpi_tpu_torch.io import native
 
-            return native.stage_gather(view, sel), boxes, None
-        except Exception:
-            block = view[:, sel] if sel is not None else view.copy()
+                block = native.stage_gather(view, sel)
+            except Exception as exc:
+                block = view[:, sel] if sel is not None else view.copy()
+                note_numpy_fallback(exc)
+                return block, boxes, None
+            METRICS.inc("mdtpu_stage_blocks_total", path="native")
             return block, boxes, None

@@ -36,13 +36,16 @@ import threading
 import numpy as np
 
 from mdanalysis_mpi_tpu_torch.core.timestep import Timestep
-from mdanalysis_mpi_tpu_torch.io.base import ReaderBase, norm_quantize
+from mdanalysis_mpi_tpu_torch.io.base import (
+    ReaderBase, norm_quantize, planar_repack,
+)
 from mdanalysis_mpi_tpu_torch.io.store import codec
 from mdanalysis_mpi_tpu_torch.io.store.backend import LocalDirBackend
 from mdanalysis_mpi_tpu_torch.io.store.manifest import (
     load_any_manifest, load_manifest,
 )
 from mdanalysis_mpi_tpu_torch.utils import integrity as _integrity
+from mdanalysis_mpi_tpu_torch.utils.timers import TIMERS
 
 #: Decoded-chunk LRU depths: raw (quantized) chunks serve the staging
 #: fast path, f32 chunks serve per-frame/oracle reads.  Small by
@@ -230,7 +233,8 @@ class StoreReader(ReaderBase):
     def _load_raw(self, ci: int):
         """Fetch + verify chunk ``ci`` → (arrays, meta).  The read-time
         scrub boundary: fingerprint mismatches are counted, marked on
-        the span timeline, and raised typed.
+        the span timeline, and raised typed.  A fetch (not a cache hit)
+        is timed as the ``chunk_read`` phase.
 
         The lock guards ONLY the cache lookup/insert — the disk fetch
         and the full-payload CRC verification run outside it, so a
@@ -250,10 +254,11 @@ class StoreReader(ReaderBase):
                 return hit
             entry = self._entries[ci]
         try:
-            blob = self._backend.get_bytes(entry["file"])
-            arrays, meta = codec.decode_chunk(
-                blob, path=self._chunk_path(ci),
-                expect_fps=entry.get("fps"))
+            with TIMERS.phase("chunk_read"):
+                blob = self._backend.get_bytes(entry["file"])
+                arrays, meta = codec.decode_chunk(
+                    blob, path=self._chunk_path(ci),
+                    expect_fps=entry.get("fps"))
         except (_integrity.IntegrityError, OSError) as exc:
             from mdanalysis_mpi_tpu_torch.obs import span_event
 
@@ -424,11 +429,10 @@ class StoreReader(ReaderBase):
         for ci, arrays, _meta in loaded:
             lo = max(start, ci * self._cf) - ci * self._cf
             hi = min(stop, (ci + 1) * self._cf) - ci * self._cf
-            c = arrays["coords"][lo:hi]
-            c = c if sel is None else c[:, sel]
+            with TIMERS.phase("gather"):
+                c = arrays["coords"][lo:hi]
+                c = c if sel is None else c[:, sel]
             if planar:
-                from mdanalysis_mpi_tpu_torch.io.base import planar_repack
-
                 c = planar_repack(c)
             parts.append(c)
             if "boxes" in arrays:
@@ -437,9 +441,13 @@ class StoreReader(ReaderBase):
             else:
                 box_parts.append(
                     np.zeros((hi - lo, 6), dtype=np.float32))
-        q = (parts[0] if len(parts) == 1
-             else np.concatenate(parts, axis=1 if planar else 0))
+        if len(parts) == 1:
+            q = parts[0]
+        else:
+            with TIMERS.phase("gather"):
+                q = np.concatenate(parts, axis=1 if planar else 0)
         boxes = (None if not have_boxes
                  else box_parts[0] if len(box_parts) == 1
                  else np.concatenate(box_parts))
+        _count("mdtpu_stage_blocks_total", path="store_direct")
         return q, boxes, np.float32(inv_scales.pop())

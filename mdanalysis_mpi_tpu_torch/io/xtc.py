@@ -19,6 +19,8 @@ from mdanalysis_mpi_tpu_torch.core.box import box_to_vectors, vectors_to_box
 from mdanalysis_mpi_tpu_torch.core.timestep import Timestep
 from mdanalysis_mpi_tpu_torch.io import native, trajectory_files
 from mdanalysis_mpi_tpu_torch.io.base import ReaderBase, sel_fingerprint
+from mdanalysis_mpi_tpu_torch.obs.metrics import METRICS
+from mdanalysis_mpi_tpu_torch.utils.timers import TIMERS
 
 _NM_TO_A = 10.0
 
@@ -173,38 +175,42 @@ class XTCReader(ReaderBase):
             # the base read-then-quantize handles it
             return ReaderBase.stage_block(self, start, stop, sel=sel,
                                           quantize=quantize)
-        if qmode is None:
-            block, boxes = self.read_block(start, stop, sel=sel)
-            return block, boxes, None
-        if start == stop:
-            block, boxes = self.read_block(start, stop, sel=sel)
-            from mdanalysis_mpi_tpu_torch.staging import quantize_block
+        with TIMERS.phase("gather"):
+            if qmode is None:
+                block, boxes = self.read_block(start, stop, sel=sel)
+                METRICS.inc("mdtpu_stage_blocks_total", path="generic")
+                return block, boxes, None
+            if start == stop:
+                block, boxes = self.read_block(start, stop, sel=sel)
+                from mdanalysis_mpi_tpu_torch.staging import quantize_block
 
-            q, inv_scale = quantize_block(block)
-            return q, boxes, inv_scale
-        hints = self._quant_hints()
-        key = sel_fingerprint(sel)
-        hint = hints.get(key, 0.0)
-        offs = self._offsets[np.arange(start, stop)]
-        if hint > 0.0:
-            # float64 scale arithmetic, shared policy constants — must
-            # stay bit-identical to ReaderBase._quantize_staged
-            scale = self.QUANT_TARGET / (hint * self.QUANT_MARGIN)
-            q, box, vmax, overflowed = native.xtc_stage_i16(
-                self._path, offs, self._natoms, sel, scale)
-            if vmax > hint:
-                hints[key] = vmax
-            if not overflowed:
+                q, inv_scale = quantize_block(block)
+                METRICS.inc("mdtpu_stage_blocks_total", path="numpy")
+                return q, boxes, inv_scale
+            hints = self._quant_hints()
+            key = sel_fingerprint(sel)
+            hint = hints.get(key, 0.0)
+            offs = self._offsets[np.arange(start, stop)]
+            if hint > 0.0:
+                # float64 scale arithmetic, shared policy constants —
+                # must stay bit-identical to ReaderBase._quantize_staged
+                scale = self.QUANT_TARGET / (hint * self.QUANT_MARGIN)
+                q, box, vmax, overflowed = native.xtc_stage_i16(
+                    self._path, offs, self._natoms, sel, scale)
+                if vmax > hint:
+                    hints[key] = vmax
+                if overflowed:
+                    scale = self.QUANT_TARGET / max(vmax, 1e-30)
+                    q, box, vmax, _ = native.xtc_stage_i16(
+                        self._path, offs, self._natoms, sel, scale)
+                METRICS.inc("mdtpu_stage_blocks_total", path="native")
                 return q, self._dims_from_raw(box), np.float32(1.0 / scale)
-            scale = self.QUANT_TARGET / max(vmax, 1e-30)
-            q, box, vmax, _ = native.xtc_stage_i16(
-                self._path, offs, self._natoms, sel, scale)
-            return q, self._dims_from_raw(box), np.float32(1.0 / scale)
-        # first block for this selection: fused f32 decode, exact-scale
-        # quantize (bit-identical to the NumPy reference), seed the hint
-        block, boxes = self.read_block(start, stop, sel=sel)
-        q, inv_scale = self._quantize_staged(block, None, sel_fp=key)
-        return q, boxes, inv_scale
+            # first block for this selection: fused f32 decode,
+            # exact-scale quantize (bit-identical to the NumPy
+            # reference), seed the hint
+            block, boxes = self.read_block(start, stop, sel=sel)
+            q, inv_scale = self._quantize_staged(block, None, sel_fp=key)
+            return q, boxes, inv_scale
 
 
 def write_xtc(path: str, coordinates: np.ndarray,

@@ -9,7 +9,10 @@ driver scores.  This pass statically harvests all four and diffs them:
 
 - **MDT201 metric-not-pinned** — a live-recorded or zero-injected
   series missing from ``PINNED_METRICS``: the schema test can't
-  protect a name it doesn't know.
+  protect a name it doesn't know.  The tables of series only this
+  package records (:data:`PORT_PINNED_TABLES`) pin themselves: the
+  JAX package's schema test knows nothing of them, and the port's
+  tests hold the snapshot to them.
 - **MDT202 pinned-metric-unregistered** — a pinned name no code
   records, injects or emits: the schema test is pinning vapor (a
   rename's orphaned half).
@@ -114,7 +117,15 @@ _TABLE_TYPES = {
     "CANARY_COUNTERS": "counter",
     "CANARY_GAUGES": "gauge",
     "CANARY_HISTOGRAMS": "histogram",
+    "STAGING_COUNTERS": "counter",
 }
+
+#: Zero-injection tables of series only this package records (the JAX
+#: package has no such table): pinned by ``obs/metrics.py`` itself,
+#: since the JAX package's ``PINNED_METRICS`` is not this package's to
+#: extend; ``tests/test_torch_staging_trace.py`` holds the snapshot to
+#: them.
+PORT_PINNED_TABLES = ("STAGING_COUNTERS",)
 
 _RECORD_TYPES = {"inc": "counter", "observe": "histogram",
                  "set_gauge": "gauge"}
@@ -194,6 +205,19 @@ def harvest_pinned(contract_py: str) -> dict[str, str]:
         return {}
     pinned = _literal_assignments(tree).get("PINNED_METRICS", {})
     return pinned if isinstance(pinned, dict) else {}
+
+
+def harvest_port_pinned(metrics_py: str) -> dict[str, str]:
+    """``name → type`` of the :data:`PORT_PINNED_TABLES` in
+    ``obs/metrics.py``."""
+    from mdanalysis_mpi_tpu_torch.lint.core import parse_file
+
+    tree, _ = parse_file(metrics_py)
+    if tree is None:
+        return {}
+    consts = _literal_assignments(tree)
+    return {name: _TABLE_TYPES[table] for table in PORT_PINNED_TABLES
+            for name in consts.get(table, ())}
 
 
 def expand_doc_token(token: str) -> list[str]:
@@ -317,7 +341,8 @@ def check_repo(root: str, notes: list[str],
 
     recorded = harvest_recorded(pkg)
     injected, declared = harvest_metrics_tables(metrics_py)
-    pinned = harvest_pinned(contract_py)
+    pinned = {**harvest_pinned(contract_py),
+              **harvest_port_pinned(metrics_py)}
     documented = harvest_doc_metrics(doc_md)
 
     # the process-invariant schema: live-recorded + zero-injected

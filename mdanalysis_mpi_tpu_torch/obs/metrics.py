@@ -117,6 +117,14 @@ class MetricsRegistry:
                             if value <= le), len(bk))
                 h.setdefault("exemplars", {})[idx] = [tid, float(value)]
 
+    def counter(self, name: str) -> dict:
+        """A copy of counter ``name``'s values by label key ({} when
+        nothing recorded it) — what a run report subtracts against,
+        without the whole snapshot's copy."""
+        with self._lock:
+            s = self._series.get(name)
+            return dict(s["values"]) if s is not None else {}
+
     def snapshot(self) -> dict:
         """Deep-copied JSON document of every series (see module
         docstring for the shape)."""
@@ -480,6 +488,20 @@ CANARY_HISTOGRAMS = (
     "mdtpu_canary_latency_seconds",
 )
 
+#: Staging counters, the port's own (the JAX package has no such
+#: table): blocks staged, labeled ``path=`` by the staging path that
+#: ran (``native`` — the C++ gather/quantize; ``numpy`` — a NumPy
+#: quantize or gather, the native library's fallback included;
+#: ``store_direct`` — the block store's raw chunk slices; ``generic`` —
+#: the reader's frame-by-frame ``read_block``), and the host bytes the
+#: executors hand to the copy to the device.  Recorded live at the
+#: readers' staging sites and ``executors._run_batches``' ``_place``;
+#: a run's deltas ride its report as ``observability["staging"]``.
+STAGING_COUNTERS = (
+    "mdtpu_stage_blocks_total",
+    "mdtpu_staged_bytes_total",
+)
+
 
 def _merge_host_snapshot(snap: dict, hid: str, host_snap: dict) -> None:
     """Fold one host's shipped snapshot into the fleet document (the
@@ -559,7 +581,7 @@ def unified_snapshot(timers=None, cache=None, telemetry=None,
             FLEET_COUNTERS + FLEET_OBS_COUNTERS + QOS_COUNTERS + \
             PROF_COUNTERS + FUSED_COUNTERS + ALERT_COUNTERS + \
             ENSEMBLE_COUNTERS + STREAM_COUNTERS + USAGE_COUNTERS + \
-            CANARY_COUNTERS:
+            CANARY_COUNTERS + STAGING_COUNTERS:
         snap.setdefault(name, {"type": "counter", "values": {"": 0}})
     for name in PROF_HISTOGRAMS + CANARY_HISTOGRAMS:
         # empty series set: a histogram carries no zero point, but

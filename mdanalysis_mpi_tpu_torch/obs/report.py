@@ -23,9 +23,16 @@ since nothing else is recording.  (This replaces the PR-5
 time-window-slice caveat; the 2-worker regression test in
 ``tests/test_obs.py`` pins the isolation.)
 
-Near-free by construction: capture is two small dict copies per run()
-call (plus one list append when a window opens), nothing per frame or
-per block.
+Staging: a process-attributed report also carries ``staging``, the
+run's deltas of the staging counters (``obs/metrics.py``
+``STAGING_COUNTERS``): ``{"blocks": {path: n}, "bytes": n}``, present
+only when the run staged.  The counters are process-wide, so a
+job-attributed report leaves it out rather than book another job's
+blocks.
+
+Near-free by construction: capture is a few small dict copies per
+run() call (plus one list append when a window opens), nothing per
+frame or per block.
 """
 
 from __future__ import annotations
@@ -42,7 +49,8 @@ def start_capture() -> dict:
 
     acc, calls = TIMERS.snapshot()
     cap = {"t0": time.perf_counter(), "acc": acc, "calls": calls,
-           "batch_runs": _executors.BATCH_RUNS}
+           "batch_runs": _executors.BATCH_RUNS,
+           "staging": _staging_counts()}
     ids = _spans.current_trace_ids()
     if ids:
         # a scheduler (or any caller) stamped trace ids on this
@@ -111,6 +119,10 @@ def finish_capture(cap: dict, analysis: str, backend: str,
         "tracing": _spans.enabled(),
         "trace_out": _spans.trace_path(),
     }
+    if attribution == "process":
+        staging = _staging_delta(cap["staging"], _staging_counts())
+        if staging is not None:
+            report["staging"] = staging
     from mdanalysis_mpi_tpu_torch.obs import prof as _prof
 
     if _prof.enabled():
@@ -119,3 +131,27 @@ def finish_capture(cap: dict, analysis: str, backend: str,
         # stays byte-identical for profiler-off runs
         report["profiler"] = _prof.run_summary()
     return report
+
+
+def _staging_counts() -> tuple[dict, dict]:
+    """The staging counters now: (blocks by label key, bytes by label
+    key)."""
+    from mdanalysis_mpi_tpu_torch.obs.metrics import METRICS
+
+    return (METRICS.counter("mdtpu_stage_blocks_total"),
+            METRICS.counter("mdtpu_staged_bytes_total"))
+
+
+def _staging_delta(before: tuple, after: tuple) -> dict | None:
+    """``{"blocks": {path: n}, "bytes": n}`` between two
+    :func:`_staging_counts`, or None when nothing was staged."""
+    blocks = {}
+    for key, n in after[0].items():
+        d = n - before[0].get(key, 0)
+        if d:
+            # the label key is ``path="<path>"``
+            blocks[key.partition('"')[2].rstrip('"')] = d
+    nbytes = sum(after[1].values()) - sum(before[1].values())
+    if not blocks and not nbytes:
+        return None
+    return {"blocks": blocks, "bytes": nbytes}

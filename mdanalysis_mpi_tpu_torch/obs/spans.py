@@ -15,7 +15,10 @@ on the prefetch row visibly overlapping dispatch spans on the main row
 Span model (nesting is by time containment per thread row, the Chrome
 "X" complete-event convention)::
 
-    run → pass → {read, stage, dispatch, wire, device_wait, fetch}
+    run → {prepare, execute, conclude}
+    execute → {stage_wait, dispatch}             (the dispatching thread)
+    stage → {chunk_read, gather, repack}; wire   (the staging thread)
+    AlignedRMSF: run → {pass1, pass2} → run → ...
     serve_job → coalesced_pass → run → ...
 
 Instant events (``ph: "i"``) mark reliability incidents: ``retry``,
@@ -502,17 +505,23 @@ _EXPORT_LOCK = threading.Lock()
 def document() -> dict:
     """The recorded events as a Chrome trace-event document (thread
     row labels regenerated from the tid table, drop count disclosed).
-    :func:`export` writes this."""
+    :func:`export` writes this.
+
+    ``otherData.wall0`` is the wall clock of ``ts`` = 0, in µs since
+    the epoch: ``wall0 + ts`` puts an event on a ``torch.profiler``
+    trace's axis, ``baseTimeNanoseconds / 1000 + ts`` there."""
     with _LOCK:
         events = list(_STATE.events)
         tid_names = dict(_STATE.tid_names)
         dropped = _STATE.dropped
+        wall0 = _STATE.wall0
     meta = [{"ph": "M", "name": "thread_name", "pid": _PID,
              "tid": tid, "args": {"name": name}}
             for tid, name in tid_names.items()]
     return {"traceEvents": meta + events, "displayTimeUnit": "ms",
             "otherData": {"tool": "mdanalysis_mpi_tpu_torch",
-                          "dropped_events": dropped}}
+                          "dropped_events": dropped,
+                          "wall0": round(wall0 * 1e6, 1)}}
 
 
 def export(path: str | None = None) -> str | None:

@@ -719,7 +719,14 @@ def _run_batches(analysis, reader, frames, bs, call, sel_idx, device,
     same batch schedule, so their collectives pair up — and each rank
     stages only its ``local_index``-th ``1/local_divisor`` slice of
     every batch, padded to that size.  Delta staging cuts each staged
-    block into ``delta_anchors`` segments, one keyframe each."""
+    block into ``delta_anchors`` segments, one keyframe each.
+
+    Timed phases (``utils/timers``): ``stage`` (a block's host side,
+    the readers' ``gather``/``repack``/``chunk_read`` inside it),
+    ``wire`` (``_place``: its fingerprint and copy to the device, on
+    every schedule), ``stage_wait`` (the dispatching thread blocked on
+    a block's future) and ``dispatch``; ``_place`` counts the host
+    bytes it copies in ``mdtpu_staged_bytes_total``."""
     from mdanalysis_mpi_tpu_torch import obs
 
     global LAST_SCAN_K, BATCH_RUNS
@@ -796,19 +803,19 @@ def _run_batches(analysis, reader, frames, bs, call, sel_idx, device,
         q_fused = None if validate else q_inline
         staged_planar = False
         if contiguous and stage is not None:
-            with _spans.span("read", n_frames=len(batch_frames)):
-                if planar and q_fused:
-                    block, boxes, inv_scale = stage(
-                        batch_frames[0], batch_frames[-1] + 1, sel_idx,
-                        q_fused, layout="planar")
-                    staged_planar = True
-                else:
-                    block, boxes, inv_scale = stage(
-                        batch_frames[0], batch_frames[-1] + 1, sel_idx,
-                        q_fused)
+            if planar and q_fused:
+                block, boxes, inv_scale = stage(
+                    batch_frames[0], batch_frames[-1] + 1, sel_idx,
+                    q_fused, layout="planar")
+                staged_planar = True
+            else:
+                block, boxes, inv_scale = stage(
+                    batch_frames[0], batch_frames[-1] + 1, sel_idx,
+                    q_fused)
         else:
-            with _spans.span("read", n_frames=len(batch_frames)):
+            with TIMERS.phase("gather"):
                 block, boxes = _stage(reader, batch_frames, sel_idx)
+            obs.METRICS.inc("mdtpu_stage_blocks_total", path="generic")
             inv_scale = None
         if _faults.plans():
             block = _faults.fire("stage", frames=batch_frames, array=block)
@@ -885,6 +892,8 @@ def _run_batches(analysis, reader, frames, bs, call, sel_idx, device,
                 _faults.fire("put")
             return put(staged_host)
 
+        obs.METRICS.inc("mdtpu_staged_bytes_total",
+                        sum(getattr(x, "nbytes", 0) for x in staged_host))
         staged = _put() if rt is None else rt.op("put", _put)
         if cache is not None and key is not None and nbytes >= 0:
             if cache.put(key, staged, nbytes) and fp is not None:
@@ -908,10 +917,11 @@ def _run_batches(analysis, reader, frames, bs, call, sel_idx, device,
             staged = cache.get(key)
             if staged is not None:
                 return staged, 0
-        with _spans.saved_context(trace_ctx), \
-                TIMERS.phase("stage", lo=a, hi=b):
-            staged_host, nbytes = _stage_op(frames[a:b])
-        return _place(staged_host, key, nbytes, bi), nbytes
+        with _spans.saved_context(trace_ctx):
+            with TIMERS.phase("stage", lo=a, hi=b):
+                staged_host, nbytes = _stage_op(frames[a:b])
+            with TIMERS.phase("wire"):
+                return _place(staged_host, key, nbytes, bi), nbytes
 
     def _note_fused_blocks(n: int):
         if engine == "fused":
@@ -1069,7 +1079,11 @@ def _run_batches(analysis, reader, frames, bs, call, sel_idx, device,
                                                   seq[nxt]), None, nb)
                     nxt += 1
                 fut, hit, nbytes = futs.pop(i)
-                staged = hit if fut is None else fut.result()
+                if fut is None:
+                    staged = hit
+                else:
+                    with TIMERS.phase("stage_wait"):
+                        staged = fut.result()
                 _run_one(seq[i], staged, nbytes)
     elif prestage:
         # chunked decode-then-wire: a chunk of blocks staged with no
@@ -1115,7 +1129,8 @@ def _run_batches(analysis, reader, frames, bs, call, sel_idx, device,
         with ThreadPoolExecutor(max_workers=1) as pool:
             fut = pool.submit(prepare, seq[0]) if seq else None
             for j, bi in enumerate(seq):
-                staged, nbytes = fut.result()
+                with TIMERS.phase("stage_wait"):
+                    staged, nbytes = fut.result()
                 if j + 1 < len(seq):
                     fut = pool.submit(prepare, seq[j + 1])
                 _run_one(bi, staged, nbytes)

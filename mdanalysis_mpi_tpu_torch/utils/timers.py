@@ -25,10 +25,22 @@ Tracing piggyback: when span tracing is enabled
 span with the same name on the current thread — the one instrumentation
 point that covers stage/dispatch/wire/serve_job everywhere they are
 timed.  Disabled-mode cost is one attribute check.
+
+Profiler bridge: while a ``torch.profiler`` profile is recording, the
+leaf staging phases (:data:`BRIDGED_PHASES`: ``gather``, ``repack``,
+``chunk_read``, ``wire``) also open a ``torch.profiler.record_function``
+of their own name, so host staging shows on the device trace's
+timeline as user annotations.  Waits and enclosing phases are never
+bridged: a trace reader names an idle gap by the single host event
+that covers most of it, and an enclosing span would take every gap
+from the leaves inside it.  Torch is found through ``sys.modules``
+(this module imports none); with no profiler recording the bridge
+costs one set lookup and one module lookup a bridged phase.
 """
 
 from __future__ import annotations
 
+import sys
 import threading
 import time
 from contextlib import contextmanager
@@ -143,6 +155,23 @@ def _attribute_window(name: str, seconds: float) -> None:
             w._add(name, seconds)
 
 
+#: The leaf staging phases that become ``record_function`` annotations
+#: while a torch profiler records (README.md, "Profiler bridge").
+BRIDGED_PHASES = frozenset(("gather", "repack", "chunk_read", "wire"))
+
+
+def _profiler_annotation(name: str):
+    """A ``torch.profiler.record_function(name)`` context while a
+    torch profiler is recording, else None.  The recording flag is read from
+    ``torch.autograd.profiler._is_profiler_enabled``, which every
+    thread sees; ``torch._C._autograd._profiler_enabled()`` reads False
+    on a thread the profile was not opened on."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not getattr(prof, "_is_profiler_enabled", False):
+        return None
+    return prof.record_function(name)
+
+
 class PhaseTimers:
     """Accumulating named wall-clock phase timers.
 
@@ -174,11 +203,16 @@ class PhaseTimers:
             _fire_phase_hooks(name)
         sp = _spans.span(name, **span_args)
         sp.__enter__()
+        rf = _profiler_annotation(name) if name in BRIDGED_PHASES else None
+        if rf is not None:
+            rf.__enter__()
         t0 = time.perf_counter()
         try:
             yield
         finally:
             dt = time.perf_counter() - t0
+            if rf is not None:
+                rf.__exit__(None, None, None)
             sp.__exit__(None, None, None)
             with self._lock:
                 self._acc[name] = self._acc.get(name, 0.0) + dt
@@ -238,7 +272,8 @@ def device_trace(trace_dir: str | None):
     ``jax.profiler.trace`` here).
 
     ``trace_dir`` None → no-op.  Otherwise profiles host and CUDA
-    activity (CUDA only when a card is present) and writes a Chrome
+    activity (CUDA only when a card is present) on every thread, the
+    staging threads' bridged phases included, and writes a Chrome
     trace-event file, ``trace.json``, under ``trace_dir`` (view it in
     Perfetto or ``chrome://tracing``).  The region ends in a wait on
     the current CUDA stream, so the trace holds the device work the
@@ -255,8 +290,12 @@ def device_trace(trace_dir: str | None):
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
+    every_thread = torch._C._profiler._ExperimentalConfig(
+        profile_all_threads=True)
+    with torch.profiler.profile(activities=activities,
+                                experimental_config=every_thread) as prof:
         yield
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+

@@ -899,21 +899,37 @@ def test_baseline_requires_justification(tmp_path):
 
 # ------------------------------------------------------- tree-wide self-check
 
+#: The port-only names the JAX package's docs/OBSERVABILITY.md does not
+#: hold, each baselined with its justification: the scheduler's memory
+#: guard instant, and the staging phases and counters.
+PORT_ONLY_NAMES = [
+    ("MDT203", "mdtpu_stage_blocks_total"),
+    ("MDT203", "mdtpu_staged_bytes_total"),
+    ("MDT204", "admission_mem_wait"),
+    ("MDT204", "chunk_read"),
+    ("MDT204", "pass1"),
+    ("MDT204", "pass2"),
+    ("MDT204", "repack"),
+    ("MDT204", "stage_wait"),
+]
+
+
 def test_tree_lints_clean():
     """The port itself: zero unbaselined findings from the fast passes,
-    with its own baseline of one justified entry and the fleet output
-    write's one pragma."""
+    with its own baseline of justified entries (the port-only names the
+    JAX package's catalog lacks) and the fleet output write's one
+    pragma."""
     report = run_lint(root=REPO, baseline=BASELINE)
     assert report.clean, "\n".join(f.render() for f in report.findings)
     n_py = sum(fn.endswith(".py") for _, _, fns in os.walk(
         os.path.join(REPO, PKG)) for fn in fns)
     assert report.files == n_py > 150
-    assert sorted((f.rule, f.detail) for f in report.baselined) == [
-        ("MDT204", "admission_mem_wait")]
+    assert sorted((f.rule, f.detail) for f in report.baselined) == \
+        PORT_ONLY_NAMES
     assert report.suppressed == 1
     with open(BASELINE) as fh:
         entries = json.load(fh)["findings"]
-    assert len(entries) == 1
+    assert len(entries) == len(PORT_ONLY_NAMES)
     assert all(len(e["justification"]) > 80 for e in entries)
 
 
@@ -931,7 +947,7 @@ def test_cli_fast_mode_imports_neither_torch_nor_jax():
     assert doc["clean"] is True
     assert doc["torch_imported"] is False
     assert doc["jax_imported"] is False
-    assert doc["n_baselined"] == 1
+    assert doc["n_baselined"] == len(PORT_ONLY_NAMES)
     assert doc["baseline"] == BASELINE
     assert sorted(doc["rules"]) == list(rule_ids())
 
