@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import functools
 import os
 import threading
 
@@ -285,9 +286,11 @@ QUANT_INT_MAX = {"int16": 32767.0, "int8": 127.0}
 def planar_repack(q: np.ndarray) -> np.ndarray:
     """Repack an interleaved ``(B, S, 3)`` staged block to the planar
     ``(3, B, S)`` component-plane layout the fused kernel
-    consumes (ops/fused_planar.py).  This is THE one host copy the
-    planar path pays — on quantized (int16/int8) bytes, behind the
-    staging boundary, counted in
+    consumes (ops/fused_planar.py).  The host copy the planar path pays
+    where no native pass writes the planes itself (the store, the
+    generic and XTC readers, int8, the NumPy fallback; a
+    ``MemoryReader``'s int16 block runs none) — on quantized bytes,
+    behind the staging boundary, counted in
     ``mdtpu_fused_planar_repacks_total`` and timed as the ``repack``
     phase."""
     from mdanalysis_mpi_tpu_torch import obs
@@ -620,7 +623,8 @@ class ReaderBase:
             q = planar_repack(q)
         return q, boxes, inv_scale
 
-    def _quantize_staged(self, src: np.ndarray, sel, sel_fp=None):
+    def _quantize_staged(self, src: np.ndarray, sel, sel_fp=None,
+                         threads: int | None = None):
         """Fused gather + int16 quantize of ``src[:, sel]`` → (q, inv_scale).
 
         Adaptive one-pass path: after the first block establishes the
@@ -633,35 +637,61 @@ class ReaderBase:
         exactly (rare: coordinate ranges drift slowly).  Range hints are
         scoped per selection content (``sel_fp``) so one wide-coordinate
         selection cannot coarsen another's resolution on the same
-        reader.  Falls back to the NumPy reference path without the
-        native library (counted as ``path="numpy"``, logged once).
+        reader.
+
+        ``threads``: None for the interleaved ``(B, S, 3)`` kernels
+        (counted as ``path="native"``); a count for their planar twins,
+        which write the ``(3, B, S)`` planes themselves with the frames
+        split over that many host threads (the same bytes as
+        ``planar_repack`` of the interleaved ones, the same scales and
+        hints; counted as ``path="native_planar"``, the count set as the
+        ``mdtpu_stage_threads`` gauge).  Falls back to the NumPy
+        reference path without the native library, ``planar_repack``
+        included for a planar request (counted as ``path="numpy"``,
+        logged once).
         """
         try:
             from mdanalysis_mpi_tpu_torch.io import native
 
+            if threads is None:
+                scaled, exact = (native.stage_gather_quantize_scaled,
+                                 native.stage_gather_quantize)
+            else:
+                scaled = functools.partial(
+                    native.stage_gather_quantize_scaled_planar,
+                    threads=threads)
+                exact = functools.partial(
+                    native.stage_gather_quantize_planar, threads=threads)
             hints = self._quant_hints()
             key = sel_fp if sel_fp is not None else sel_fingerprint(sel)
             hint = hints.get(key, 0.0)
+            q = None
             if hint > 0.0:
                 scale = self.QUANT_TARGET / (hint * self.QUANT_MARGIN)
-                q, vmax, overflowed = native.stage_gather_quantize_scaled(
-                    src, sel, scale)
+                staged, vmax, overflowed = scaled(src, sel, scale)
                 if vmax > hint:
                     hints[key] = vmax
                 if not overflowed:
-                    METRICS.inc("mdtpu_stage_blocks_total", path="native")
-                    return q, np.float32(1.0 / scale)
-            q, inv_scale = native.stage_gather_quantize(src, sel)
-            # the exact kernel's scale encodes the block max: seed the hint
-            hints[key] = max(hints.get(key, 0.0),
-                             float(inv_scale) * self.QUANT_TARGET)
-            METRICS.inc("mdtpu_stage_blocks_total", path="native")
-            return q, inv_scale
+                    q, inv_scale = staged, np.float32(1.0 / scale)
+            if q is None:
+                q, inv_scale = exact(src, sel)
+                # the exact kernel's scale encodes the block max: seed
+                # the hint
+                hints[key] = max(hints.get(key, 0.0),
+                                 float(inv_scale) * self.QUANT_TARGET)
         except Exception as exc:
             from mdanalysis_mpi_tpu_torch.staging import quantize_block
 
             note_numpy_fallback(exc)
-            return quantize_block(src if sel is None else src[:, sel])
+            return quantize_block(
+                src if sel is None else src[:, sel],
+                layout="interleaved" if threads is None else "planar")
+        if threads is None:
+            METRICS.inc("mdtpu_stage_blocks_total", path="native")
+        else:
+            METRICS.inc("mdtpu_stage_blocks_total", path="native_planar")
+            METRICS.set_gauge("mdtpu_stage_threads", threads)
+        return q, inv_scale
 
     def stage_cached(self, start: int, stop: int,
                      sel: np.ndarray | None = None, quantize=False,

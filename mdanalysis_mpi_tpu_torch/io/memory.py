@@ -117,24 +117,28 @@ class MemoryReader(ReaderBase):
         no intermediate ``read_block`` copy.  In-memory trajectories are
         the staging fast path (the reference's RMSF.py:113 in-memory
         universe generalized to the TPU feed), so this one fused pass is
-        where the single staging core's cycles go.  Planar requests
-        stage through the same fused gather, then one ``planar_repack``
-        on the quantized bytes."""
+        where the staging cycles go.  A planar int16 request is one
+        native pass that writes the ``(3, B, S)`` planes itself, its
+        frames split over host threads (``native.stage_threads``); the
+        NumPy fallback and int8 stage interleaved, then one
+        ``planar_repack``."""
         if not 0 <= start <= stop <= self.n_frames:
             raise IndexError(
                 f"block [{start},{stop}) out of range [0,{self.n_frames}]")
         from mdanalysis_mpi_tpu_torch.io.base import norm_quantize, planar_repack
 
+        qmode = norm_quantize(quantize)
         if layout == "planar":
-            if norm_quantize(quantize) is None:
+            if qmode is None:
                 raise ValueError(
                     "layout='planar' requires quantized staging "
                     "(int16/int8); float32 blocks stay interleaved")
+            if qmode == "int16" and not self.transformations:
+                return self._stage_planar_int16(start, stop, sel)
             q, boxes, inv_scale = self.stage_block(start, stop, sel=sel,
                                                    quantize=quantize)
             return planar_repack(q), boxes, inv_scale
 
-        qmode = norm_quantize(quantize)
         if self.transformations:
             return ReaderBase.stage_block(self, start, stop, sel=sel,
                                           quantize=quantize)
@@ -164,3 +168,16 @@ class MemoryReader(ReaderBase):
                 return block, boxes, None
             METRICS.inc("mdtpu_stage_blocks_total", path="native")
             return block, boxes, None
+
+    def _stage_planar_int16(self, start: int, stop: int, sel):
+        """The planar int16 block of frames ``[start, stop)``: gather,
+        quantize and planar write in one native pass over
+        ``native.stage_threads`` host threads, all inside ``gather``."""
+        from mdanalysis_mpi_tpu_torch.io import native
+
+        boxes = None if self._dims is None else self._dims[start:stop].copy()
+        view = self._coords[start:stop]
+        with TIMERS.phase("gather"):
+            q, inv_scale = self._quantize_staged(
+                view, sel, threads=native.stage_threads(stop - start))
+        return q, boxes, inv_scale

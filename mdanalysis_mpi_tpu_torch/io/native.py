@@ -107,6 +107,18 @@ def load() -> ctypes.CDLL:
             ctypes.c_long, ctypes.c_float, _i16p,
             ctypes.POINTER(ctypes.c_float)]
 
+        lib.stage_gather_quantize_i16_planar.restype = ctypes.c_int
+        lib.stage_gather_quantize_i16_planar.argtypes = [
+            _f32p, ctypes.c_long, ctypes.c_long, ctypes.c_void_p,
+            ctypes.c_long, ctypes.c_long, _i16p,
+            ctypes.POINTER(ctypes.c_float)]
+
+        lib.stage_gather_quantize_i16_scaled_planar.restype = ctypes.c_int
+        lib.stage_gather_quantize_i16_scaled_planar.argtypes = [
+            _f32p, ctypes.c_long, ctypes.c_long, ctypes.c_void_p,
+            ctypes.c_long, ctypes.c_float, ctypes.c_long, _i16p,
+            ctypes.POINTER(ctypes.c_float)]
+
         lib.stage_gather_f32.restype = ctypes.c_int
         lib.stage_gather_f32.argtypes = [
             _f32p, ctypes.c_long, ctypes.c_long, ctypes.c_void_p,
@@ -126,6 +138,37 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
+def _sel_arg(sel, n_atoms: int):
+    """``(idx, n_sel, pointer)`` for a staging kernel's selection: the
+    int32 index array (the caller keeps it alive across the call), or
+    ``(None, n_atoms, None)`` for every atom."""
+    if sel is None:
+        return None, n_atoms, None
+    idx = np.ascontiguousarray(sel, dtype=np.int32)
+    return idx, len(idx), idx.ctypes.data_as(ctypes.c_void_p)
+
+
+def stage_threads(n_frames: int, cores: int | None = None,
+                  ranks: int | None = None) -> int:
+    """Host threads for one planar staging pass over ``n_frames``: the
+    cores this process may run on (``os.sched_getaffinity``), shared
+    with the other ranks on this host
+    (``parallel.distributed.ranks_on_host``), less one for the wire and
+    dispatch threads; at least 1, at most one a frame.  Passes that run
+    at once in one process (a ``Scheduler``'s workers and its prefetch
+    thread) each take this count: on the card's host that fills six
+    caches faster than one budget shared among them (PERF.md §6)."""
+    if cores is None:
+        affinity = getattr(os, "sched_getaffinity", None)
+        cores = len(affinity(0)) if affinity else (os.cpu_count() or 1)
+    if ranks is None:
+        from mdanalysis_mpi_tpu_torch.parallel.distributed import (
+            ranks_on_host)
+
+        ranks = ranks_on_host()
+    return max(1, min(cores // max(ranks, 1) - 1, n_frames))
+
+
 def stage_gather_quantize(src: np.ndarray, sel=None):
     """Fused selection-gather + block int16 quantization in C++.
 
@@ -138,13 +181,7 @@ def stage_gather_quantize(src: np.ndarray, sel=None):
     """
     lib = load()
     b, n = src.shape[0], src.shape[1]
-    if sel is None:
-        s = n
-        idx_p = None
-    else:
-        idx = np.ascontiguousarray(sel, dtype=np.int32)
-        s = len(idx)
-        idx_p = idx.ctypes.data_as(ctypes.c_void_p)
+    idx, s, idx_p = _sel_arg(sel, n)
     out = np.empty((b, s, 3), dtype=np.int16)
     inv = ctypes.c_float(0.0)
     rc = lib.stage_gather_quantize_i16(
@@ -163,19 +200,55 @@ def stage_gather_quantize_scaled(src: np.ndarray, sel, scale: float):
     """
     lib = load()
     b, n = src.shape[0], src.shape[1]
-    if sel is None:
-        s = n
-        idx_p = None
-    else:
-        idx = np.ascontiguousarray(sel, dtype=np.int32)
-        s = len(idx)
-        idx_p = idx.ctypes.data_as(ctypes.c_void_p)
+    idx, s, idx_p = _sel_arg(sel, n)
     out = np.empty((b, s, 3), dtype=np.int16)
     vmax = ctypes.c_float(0.0)
     rc = lib.stage_gather_quantize_i16_scaled(
         src, b, n, idx_p, s, ctypes.c_float(scale), out, ctypes.byref(vmax))
     if rc < 0:
         raise RuntimeError(f"stage_gather_quantize_i16_scaled failed (rc={rc})")
+    return out, float(vmax.value), rc == 1
+
+
+def stage_gather_quantize_planar(src: np.ndarray, sel=None,
+                                 threads: int | None = None):
+    """:func:`stage_gather_quantize` writing the ``(3, B, S)`` planes
+    straight from the native pass, its frames split over ``threads``
+    host threads (default :func:`stage_threads`).  Returns ``(planes,
+    inv_scale)``: the bytes of ``planar_repack`` of the interleaved
+    kernel's block at any thread count."""
+    lib = load()
+    b, n = src.shape[0], src.shape[1]
+    idx, s, idx_p = _sel_arg(sel, n)
+    nt = stage_threads(b) if threads is None else threads
+    out = np.empty((3, b, s), dtype=np.int16)
+    inv = ctypes.c_float(0.0)
+    rc = lib.stage_gather_quantize_i16_planar(
+        src, b, n, idx_p, s, nt, out, ctypes.byref(inv))
+    if rc != 0:
+        raise RuntimeError(
+            f"stage_gather_quantize_i16_planar failed (rc={rc})")
+    return out, np.float32(inv.value)
+
+
+def stage_gather_quantize_scaled_planar(src: np.ndarray, sel, scale: float,
+                                        threads: int | None = None):
+    """:func:`stage_gather_quantize_scaled` writing the ``(3, B, S)``
+    planes, split over ``threads`` host threads (default
+    :func:`stage_threads`).  Returns ``(planes, max_abs, overflowed)``
+    with the same contract."""
+    lib = load()
+    b, n = src.shape[0], src.shape[1]
+    idx, s, idx_p = _sel_arg(sel, n)
+    nt = stage_threads(b) if threads is None else threads
+    out = np.empty((3, b, s), dtype=np.int16)
+    vmax = ctypes.c_float(0.0)
+    rc = lib.stage_gather_quantize_i16_scaled_planar(
+        src, b, n, idx_p, s, ctypes.c_float(scale), nt, out,
+        ctypes.byref(vmax))
+    if rc < 0:
+        raise RuntimeError(
+            f"stage_gather_quantize_i16_scaled_planar failed (rc={rc})")
     return out, float(vmax.value), rc == 1
 
 
@@ -194,13 +267,7 @@ def xtc_stage_i16(path: str, offsets: np.ndarray, natoms: int, sel,
     lib = load()
     offsets = np.ascontiguousarray(offsets, dtype=np.int64)
     n = len(offsets)
-    if sel is None:
-        s = natoms
-        idx_p = None
-    else:
-        idx = np.ascontiguousarray(sel, dtype=np.int32)
-        s = len(idx)
-        idx_p = idx.ctypes.data_as(ctypes.c_void_p)
+    idx, s, idx_p = _sel_arg(sel, natoms)
     out = np.empty((n, s, 3), dtype=np.int16)
     box = np.empty((n, 9), dtype=np.float32) if want_box else None
     vmax = ctypes.c_float(0.0)
@@ -222,13 +289,7 @@ def xtc_stage_f32(path: str, offsets: np.ndarray, natoms: int, sel,
     lib = load()
     offsets = np.ascontiguousarray(offsets, dtype=np.int64)
     n = len(offsets)
-    if sel is None:
-        s = natoms
-        idx_p = None
-    else:
-        idx = np.ascontiguousarray(sel, dtype=np.int32)
-        s = len(idx)
-        idx_p = idx.ctypes.data_as(ctypes.c_void_p)
+    idx, s, idx_p = _sel_arg(sel, natoms)
     out = np.empty((n, s, 3), dtype=np.float32)
     box = np.empty((n, 9), dtype=np.float32) if want_box else None
     rc = lib.xtc_stage_f32(
@@ -243,13 +304,7 @@ def stage_gather(src: np.ndarray, sel=None) -> np.ndarray:
     """Selection gather ``src[:, sel]`` in C++ (float32 staging path)."""
     lib = load()
     b, n = src.shape[0], src.shape[1]
-    if sel is None:
-        s = n
-        idx_p = None
-    else:
-        idx = np.ascontiguousarray(sel, dtype=np.int32)
-        s = len(idx)
-        idx_p = idx.ctypes.data_as(ctypes.c_void_p)
+    idx, s, idx_p = _sel_arg(sel, n)
     out = np.empty((b, s, 3), dtype=np.float32)
     rc = lib.stage_gather_f32(src, b, n, idx_p, s, out)
     if rc != 0:

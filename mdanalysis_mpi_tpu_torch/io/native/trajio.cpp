@@ -19,6 +19,7 @@
 // caller-allocated.  Functions return 0 on success, negative on error.
 
 #include <algorithm>
+#include <atomic>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -1138,6 +1139,176 @@ int stage_gather_quantize_i16_scaled(const float* src, long n_frames,
     }
     *max_abs_out = vmax;
     // reject when the provided scale would have clipped real data
+    return ((double)vmax * (double)scale > 32767.0) ? 1 : 0;
+}
+
+// ---------------------------------------------------------------------------
+// Planar staging kernels: the two kernels above, writing the fused kernel's
+// (3, n_frames, n_sel) component planes directly, with the frames shared out
+// in chunks over n_threads threads.  A thread writes only the rows of the
+// frames it claimed and keeps its own max|x|; the maxima
+// are reduced after the join (max is associative, so the scale and the
+// overflow verdict equal the one-thread ones).  The arithmetic is the
+// interleaved kernels', so the planes equal a planar repack of their output
+// byte for byte at any thread count.
+// ---------------------------------------------------------------------------
+
+}  // extern "C"
+
+// max|x| over src[lo:hi, idx] (all atoms when idx is nullptr)
+static float sel_max_abs(const float* src, long lo, long hi, long n_atoms,
+                         const int32_t* idx, long n_sel) {
+    float vmax = 0.0f;
+    for (long f = lo; f < hi; f++) {
+        const float* fr = src + (size_t)f * n_atoms * 3;
+        for (long s = 0; s < n_sel; s++) {
+            const float* p = fr + (size_t)(idx ? idx[s] : s) * 3;
+            for (int d = 0; d < 3; d++) {
+                float a = std::fabs(p[d]);
+                if (a > vmax) vmax = a;
+            }
+        }
+    }
+    return vmax;
+}
+
+// Frames [lo, hi) of the exact kernel's planes: no clamp, as in
+// stage_gather_quantize_i16 (the exact scale keeps |q| <= 32000).
+static void exact_planar_rows(const float* src, long lo, long hi,
+                              long n_atoms, const int32_t* idx, long n_sel,
+                              float scalef, int16_t* out, size_t plane) {
+    for (long f = lo; f < hi; f++) {
+        const float* fr = src + (size_t)f * n_atoms * 3;
+        int16_t* o0 = out + (size_t)f * n_sel;
+        int16_t* o1 = o0 + plane;
+        int16_t* o2 = o1 + plane;
+        for (long s = 0; s < n_sel; s++) {
+            const float* p = fr + (size_t)(idx ? idx[s] : s) * 3;
+            o0[s] = (int16_t)std::nearbyintf(p[0] * scalef);
+            o1[s] = (int16_t)std::nearbyintf(p[1] * scalef);
+            o2[s] = (int16_t)std::nearbyintf(p[2] * scalef);
+        }
+    }
+}
+
+static inline float quantize_clamped(float x, float scale) {
+    float q = std::nearbyintf(x * scale);
+    if (q > 32767.0f) q = 32767.0f;
+    if (q < -32767.0f) q = -32767.0f;
+    return q;
+}
+
+// Frames [lo, hi) of the one-pass kernel's planes → their max|x|.
+static float scaled_planar_rows(const float* src, long lo, long hi,
+                                long n_atoms, const int32_t* idx, long n_sel,
+                                float scale, int16_t* out, size_t plane) {
+    float vmax = 0.0f;
+    for (long f = lo; f < hi; f++) {
+        const float* fr = src + (size_t)f * n_atoms * 3;
+        int16_t* o0 = out + (size_t)f * n_sel;
+        int16_t* o1 = o0 + plane;
+        int16_t* o2 = o1 + plane;
+        for (long s = 0; s < n_sel; s++) {
+            const float* p = fr + (size_t)(idx ? idx[s] : s) * 3;
+            for (int d = 0; d < 3; d++) {
+                float a = std::fabs(p[d]);
+                if (a > vmax) vmax = a;
+            }
+            o0[s] = (int16_t)quantize_clamped(p[0], scale);
+            o1[s] = (int16_t)quantize_clamped(p[1], scale);
+            o2[s] = (int16_t)quantize_clamped(p[2], scale);
+        }
+    }
+    return vmax;
+}
+
+// Run body(t, lo, hi) over [0, n) on `nthreads` threads (the calling thread
+// is thread nthreads - 1): each thread claims the next chunk of frames until
+// none is left, so a thread the host delays holds up one chunk, not a fixed
+// share of the block.  body keeps what it reduces per thread t.  A thread
+// that cannot be started is skipped (std::thread's exceptions must not
+// unwind across this C ABI): the others take its chunks, and the bytes do
+// not depend on which thread writes a frame.
+template <class Body>
+static void split_frames(long n, long nthreads, const Body& body) {
+    const long chunk = std::max(1L, n / (nthreads * 8));
+    std::atomic<long> next(0);
+    auto work = [&body, &next, chunk, n](long t) {
+        for (long lo; (lo = next.fetch_add(chunk)) < n;)
+            body(t, lo, std::min(lo + chunk, n));
+    };
+    std::vector<std::thread> workers;
+    for (long t = 0; t + 1 < nthreads; t++) {
+        try {
+            workers.emplace_back(work, t);
+        } catch (...) {
+        }
+    }
+    work(nthreads - 1);
+    for (auto& w : workers) w.join();
+}
+
+static long clamp_threads(long n_threads, long n_frames) {
+    if (n_threads > n_frames) n_threads = n_frames;
+    return n_threads < 1 ? 1 : n_threads;
+}
+
+extern "C" {
+
+// Exact-scale planar kernel (stage_gather_quantize_i16's scale and bytes):
+// out is (3, n_frames, n_sel) int16.
+int stage_gather_quantize_i16_planar(const float* src, long n_frames,
+                                     long n_atoms, const int32_t* idx,
+                                     long n_sel, long n_threads,
+                                     int16_t* out, float* inv_scale_out) {
+    if (n_frames < 0 || n_atoms < 0 || n_sel < 0 || n_threads < 1)
+        return -1;
+    if (idx == nullptr) n_sel = n_atoms;
+    const long nt = clamp_threads(n_threads, n_frames);
+    std::vector<float> vmaxs((size_t)nt, 0.0f);
+    split_frames(n_frames, nt, [&](long t, long lo, long hi) {
+        vmaxs[(size_t)t] = std::max(
+            vmaxs[(size_t)t], sel_max_abs(src, lo, hi, n_atoms, idx, n_sel));
+    });
+    float vmax = 0.0f;
+    for (float v : vmaxs)
+        if (v > vmax) vmax = v;
+    const double m = (n_frames * n_sel > 0) ? (double)vmax : 1.0;
+    const double scale = 32000.0 / std::max(m, 1e-30);
+    const float scalef = (float)scale;
+    const size_t plane = (size_t)n_frames * n_sel;
+    split_frames(n_frames, nt, [&](long, long lo, long hi) {
+        exact_planar_rows(src, lo, hi, n_atoms, idx, n_sel, scalef, out,
+                          plane);
+    });
+    *inv_scale_out = (float)(1.0 / scale);
+    return 0;
+}
+
+// One-pass planar kernel with a caller-provided scale
+// (stage_gather_quantize_i16_scaled's contract: returns 1 when the scale
+// would have clipped real data, *max_abs_out the true max).
+int stage_gather_quantize_i16_scaled_planar(const float* src, long n_frames,
+                                            long n_atoms, const int32_t* idx,
+                                            long n_sel, float scale,
+                                            long n_threads, int16_t* out,
+                                            float* max_abs_out) {
+    if (n_frames < 0 || n_atoms < 0 || n_sel < 0 || !(scale > 0.0f)
+            || n_threads < 1)
+        return -1;
+    if (idx == nullptr) n_sel = n_atoms;
+    const long nt = clamp_threads(n_threads, n_frames);
+    const size_t plane = (size_t)n_frames * n_sel;
+    std::vector<float> vmaxs((size_t)nt, 0.0f);
+    split_frames(n_frames, nt, [&](long t, long lo, long hi) {
+        vmaxs[(size_t)t] = std::max(
+            vmaxs[(size_t)t], scaled_planar_rows(src, lo, hi, n_atoms, idx,
+                                                 n_sel, scale, out, plane));
+    });
+    float vmax = 0.0f;
+    for (float v : vmaxs)
+        if (v > vmax) vmax = v;
+    *max_abs_out = vmax;
     return ((double)vmax * (double)scale > 32767.0) ? 1 : 0;
 }
 

@@ -118,6 +118,7 @@ _TABLE_TYPES = {
     "CANARY_GAUGES": "gauge",
     "CANARY_HISTOGRAMS": "histogram",
     "STAGING_COUNTERS": "counter",
+    "STAGING_GAUGES": "gauge",
 }
 
 #: Zero-injection tables of series only this package records (the JAX
@@ -125,7 +126,7 @@ _TABLE_TYPES = {
 #: since the JAX package's ``PINNED_METRICS`` is not this package's to
 #: extend; ``tests/test_torch_staging_trace.py`` holds the snapshot to
 #: them.
-PORT_PINNED_TABLES = ("STAGING_COUNTERS",)
+PORT_PINNED_TABLES = ("STAGING_COUNTERS", "STAGING_GAUGES")
 
 _RECORD_TYPES = {"inc": "counter", "observe": "histogram",
                  "set_gauge": "gauge"}

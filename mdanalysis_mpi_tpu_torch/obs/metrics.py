@@ -394,7 +394,8 @@ PROF_HISTOGRAMS = (
 #: Fused-kernel counters (ops/fused_planar.py, io/base.py::planar_repack):
 #: blocks dispatched through a fused quantized-native program, host
 #: planar repacks paid at the staging boundary (io/base.planar_repack
-#: — the fused path's ONE host copy), and trace-time fallbacks to the
+#: — the fused path's one host copy, where no native pass writes the
+#: planes itself), and trace-time fallbacks to the
 #: generic schedule (shape-ineligible planar tiles, mesh executors).
 #: Recorded live at the dispatch/staging sites; zero-injected so a
 #: process that never ran the fused engine still carries the schema.
@@ -490,7 +491,9 @@ CANARY_HISTOGRAMS = (
 
 #: Staging counters, the port's own (the JAX package has no such
 #: table): blocks staged, labeled ``path=`` by the staging path that
-#: ran (``native`` — the C++ gather/quantize; ``numpy`` — a NumPy
+#: ran (``native`` — the C++ gather/quantize; ``native_planar`` — the
+#: C++ gather, quantize and planar write of a ``MemoryReader``'s planar
+#: int16 block, over host threads; ``numpy`` — a NumPy
 #: quantize or gather, the native library's fallback included;
 #: ``store_direct`` — the block store's raw chunk slices; ``generic`` —
 #: the reader's frame-by-frame ``read_block``), and the host bytes the
@@ -500,6 +503,14 @@ CANARY_HISTOGRAMS = (
 STAGING_COUNTERS = (
     "mdtpu_stage_blocks_total",
     "mdtpu_staged_bytes_total",
+)
+
+#: Staging gauge, the port's own: the host threads the last native
+#: planar staging pass split its frames over (``io/memory.py``,
+#: ``io.native.stage_threads``: the process's cores over the ranks on
+#: its host, less one).
+STAGING_GAUGES = (
+    "mdtpu_stage_threads",
 )
 
 
@@ -590,7 +601,8 @@ def unified_snapshot(timers=None, cache=None, telemetry=None,
     for name in BREAKER_GAUGES + LINT_GAUGES + INTEGRITY_GAUGES \
             + STORE_CACHE_GAUGES + FLEET_GAUGES + FLEET_OBS_GAUGES \
             + QOS_GAUGES + PROF_GAUGES + ALERT_GAUGES \
-            + ENSEMBLE_GAUGES + STREAM_GAUGES + CANARY_GAUGES:
+            + ENSEMBLE_GAUGES + STREAM_GAUGES + CANARY_GAUGES \
+            + STAGING_GAUGES:
         # 0 == closed (reliability/breaker.py STATE_VALUES): a process
         # that never tripped a breaker reports the healthy state;
         # likewise 0 lint rules/findings means "never linted here"

@@ -82,6 +82,47 @@ def initialize(coordinator_address: str | None = None,
     dist.init_process_group(
         backend=backend, timeout=datetime.timedelta(seconds=timeout_s),
         **init)
+    global _RANKS_ON_HOST
+    _RANKS_ON_HOST = _count_ranks_on_host(coordinator_address,
+                                          num_processes)
+
+
+#: Ranks of the default process group on this process's host, counted
+#: when ``initialize`` joins it (``ranks_on_host``).
+_RANKS_ON_HOST = 1
+
+_LOOPBACK = ("localhost", "127.", "::1", "[::1]")
+
+
+def _count_ranks_on_host(coordinator_address: str | None,
+                         num_processes: int | None) -> int:
+    """Ranks of the just-joined group on this host: all
+    ``num_processes``, when they meet at a loopback address (only
+    processes of this host can reach it); else the ranks whose host
+    name is this one's, gathered once over the group."""
+    import socket
+
+    import torch.distributed as dist
+
+    if coordinator_address is not None:
+        host = coordinator_address.rpartition(":")[0]
+        if host.startswith(_LOOPBACK):
+            return int(num_processes)
+    names = [None] * dist.get_world_size()
+    me = socket.gethostname()
+    dist.all_gather_object(names, me)
+    return names.count(me)
+
+
+def ranks_on_host() -> int:
+    """How many ranks of the default process group share this host (1
+    when none is initialised): the staging passes divide the host's
+    cores by it (``io.native.stage_threads``)."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return 1
+    return _RANKS_ON_HOST
 
 
 def world() -> tuple[int, int]:

@@ -253,7 +253,9 @@ class TestMainInProcess:
             assert "traceEvents" in json.load(f)
         from mdanalysis_mpi_tpu_torch import obs
 
-        obs.disable_tracing()
+        # discard the run's spans: a later test in this process that
+        # turns tracing on must not export them as its own
+        obs.disable_tracing(discard=True)
 
     def test_jax_backend_name_refused(self, psf_dcd):
         psf, dcd, _ = psf_dcd

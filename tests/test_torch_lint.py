@@ -901,9 +901,10 @@ def test_baseline_requires_justification(tmp_path):
 
 #: The port-only names the JAX package's docs/OBSERVABILITY.md does not
 #: hold, each baselined with its justification: the scheduler's memory
-#: guard instant, and the staging phases and counters.
+#: guard instant, and the staging phases, counters and gauge.
 PORT_ONLY_NAMES = [
     ("MDT203", "mdtpu_stage_blocks_total"),
+    ("MDT203", "mdtpu_stage_threads"),
     ("MDT203", "mdtpu_staged_bytes_total"),
     ("MDT204", "admission_mem_wait"),
     ("MDT204", "chunk_read"),

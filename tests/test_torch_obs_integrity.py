@@ -131,19 +131,22 @@ def _name_tables(mod) -> dict:
 
 def test_known_metric_registry_equals_jax():
     """Every table of the JAX package's schema, the same in the port;
-    the port adds its staging counters and nothing else."""
+    the port adds its staging counters and gauge and nothing else."""
     port, ref = _name_tables(metrics), _name_tables(jmetrics)
     assert "_TELEMETRY_COUNTERS" in port and "FUSED_COUNTERS" in port
     assert port.pop("STAGING_COUNTERS") == (
         "mdtpu_stage_blocks_total", "mdtpu_staged_bytes_total")
+    assert port.pop("STAGING_GAUGES") == ("mdtpu_stage_threads",)
     assert port == ref
     assert metrics.TIME_BUCKETS == jmetrics.TIME_BUCKETS
     # the zero-injected schema of a fresh registry is the same document
-    # but for the port's staging counters
+    # but for the port's staging counters and gauge
     snap = metrics.unified_snapshot(registry=metrics.MetricsRegistry())
     jsnap = jmetrics.unified_snapshot(registry=jmetrics.MetricsRegistry())
     for name in metrics.STAGING_COUNTERS:
         assert snap.pop(name) == {"type": "counter", "values": {"": 0}}
+    for name in metrics.STAGING_GAUGES:
+        assert snap.pop(name) == {"type": "gauge", "values": {"": 0}}
     assert snap == jsnap
     assert "mdtpu_fused_planar_repacks_total" in snap
     assert "mdtpu_store_chunks_read_total" in snap

@@ -94,19 +94,23 @@ def _run(u):
 @pytest.mark.parametrize("source", ["memory", "store"])
 def test_staging_phases_are_called_once_a_block(source, store_dir,
                                                 no_tracing):
-    """Pass 1 stages every block (gather, repack, the copy), and the
-    dispatcher waits once on each; pass 2 reads the blocks pass 1 left
-    on the device and stages none.  The store reads each chunk once."""
+    """Pass 1 stages every block (gather, the store's repack, the copy),
+    and the dispatcher waits once on each; pass 2 reads the blocks pass
+    1 left on the device and stages none.  The store reads each chunk
+    once; from memory the native pass writes the planes itself, so no
+    repack runs."""
     u = (_memory_universe() if source == "memory"
          else Universe(_topology(), store_dir))
     rep = _run(u)
     phases = rep["phases"]
-    for name in ("stage", "gather", "repack", "wire", "stage_wait"):
+    for name in ("stage", "gather", "wire", "stage_wait"):
         assert phases[name]["calls"] == N_BLOCKS, (name, phases)
     if source == "store":
         assert phases["chunk_read"]["calls"] == N_BLOCKS
+        assert phases["repack"]["calls"] == N_BLOCKS
     else:
         assert "chunk_read" not in phases
+        assert "repack" not in phases
     assert phases["pass1"]["calls"] == 1
     assert phases["pass2"]["calls"] == 1
     assert "read" not in phases
@@ -140,8 +144,9 @@ def test_store_repacks_each_chunk_slice(store_dir, split_store_dir,
 
 
 def test_leaf_phases_nest_inside_stage(no_tracing):
-    """gather and repack run inside stage on the staging thread: their
-    seconds sum to no more than stage's (unrounded timer deltas)."""
+    """gather runs inside stage on the staging thread: its seconds are
+    no more than stage's (unrounded timer deltas); from memory the
+    planar int16 pass is all gather, and no repack runs."""
     acc0, _ = TIMERS.snapshot()
     _run(_memory_universe())
     acc1, _ = TIMERS.snapshot()
@@ -149,7 +154,7 @@ def test_leaf_phases_nest_inside_stage(no_tracing):
     def d(name):
         return acc1.get(name, 0.0) - acc0.get(name, 0.0)
 
-    assert d("gather") > 0 and d("repack") > 0
+    assert d("gather") > 0 and d("repack") == 0
     assert d("gather") + d("repack") <= d("stage")
 
 
@@ -194,13 +199,13 @@ def test_pass_phases_replace_the_pass_span(tmp_path, no_tracing):
 
 
 def test_staging_summary_counts_paths_and_bytes(no_tracing):
-    """The native path stages every block of pass 1; the bytes are the
+    """The native planar path stages every block of pass 1; the bytes are the
     host tuples handed to the copy (planar int16 planes of the selection
     padded to the fused kernel's atom tile, the scale, the boxes and the
     float32 mask a block)."""
     rep = _run(_memory_universe())
     staging = rep["staging"]
-    assert staging["blocks"] == {"native": N_BLOCKS}
+    assert staging["blocks"] == {"native_planar": N_BLOCKS}
     padded = -(-(N_ATOMS // 2) // ATOM_TILE) * ATOM_TILE
     per_block = (3 * BATCH * padded * 2     # int16 planes
                  + 4                        # inverse scale
@@ -215,14 +220,16 @@ def test_store_staging_counts_the_direct_path(store_dir, no_tracing):
 
 
 def test_numpy_fallback_is_counted_and_reported(monkeypatch, no_tracing):
-    """A native failure in ``_quantize_staged`` falls back to NumPy: the
+    """A native failure in the planar pass falls back to NumPy: the
     block counts as ``path="numpy"``, in the registry and in the run
     report, and the fallback is logged once."""
     def broken(*a, **k):
         raise OSError("libtrajio.so: cannot open shared object file")
 
-    monkeypatch.setattr(native, "stage_gather_quantize", broken)
-    monkeypatch.setattr(native, "stage_gather_quantize_scaled", broken)
+    for name in ("stage_gather_quantize", "stage_gather_quantize_scaled",
+                 "stage_gather_quantize_planar",
+                 "stage_gather_quantize_scaled_planar"):
+        monkeypatch.setattr(native, name, broken)
     before = obs.METRICS.counter("mdtpu_stage_blocks_total").get(
         'path="numpy"', 0)
     rep = _run(_memory_universe())
@@ -248,8 +255,10 @@ def test_staging_counters_are_pinned_and_in_the_snapshot():
     pins = schema.harvest_port_pinned(
         os.path.join(REPO, "mdanalysis_mpi_tpu_torch", "obs", "metrics.py"))
     assert pins == {"mdtpu_stage_blocks_total": "counter",
-                    "mdtpu_staged_bytes_total": "counter"}
-    assert set(pins) == set(obs_metrics.STAGING_COUNTERS)
+                    "mdtpu_staged_bytes_total": "counter",
+                    "mdtpu_stage_threads": "gauge"}
+    assert set(pins) == set(obs_metrics.STAGING_COUNTERS
+                            + obs_metrics.STAGING_GAUGES)
     snap = obs_metrics.unified_snapshot(
         registry=obs_metrics.MetricsRegistry())
     for name, typ in pins.items():
@@ -266,9 +275,9 @@ def _events(trace_dir):
 
 def test_bridge_puts_staging_leaves_on_the_trace(tmp_path, no_tracing):
     """Under ``device_trace`` (every thread profiled), the prefetch
-    thread's gather and repack are user annotations on a thread other
+    thread's gather and wire are user annotations on a thread other
     than the one that opened the profile, once a block; no wait or
-    enclosing phase is."""
+    enclosing phase is, and from memory no repack runs."""
     out = str(tmp_path / "trace")
     with device_trace(out):
         _run(_memory_universe())
@@ -276,12 +285,13 @@ def test_bridge_puts_staging_leaves_on_the_trace(tmp_path, no_tracing):
     ann = [e for e in doc["traceEvents"]
            if e.get("cat") == "user_annotation"]
     main_tid = threading.get_native_id()
-    for name in ("gather", "repack", "wire"):
+    for name in ("gather", "wire"):
         mine = [e for e in ann if e["name"] == name]
         assert len(mine) == N_BLOCKS, name
         assert all(e["tid"] != main_tid for e in mine), name
     names = {e["name"] for e in ann}
     assert not names & set(UNBRIDGED), names & set(UNBRIDGED)
+    assert "repack" not in names
 
 
 def test_no_record_function_without_a_profiler(monkeypatch, no_tracing):
@@ -301,8 +311,8 @@ def test_no_record_function_without_a_profiler(monkeypatch, no_tracing):
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]):
         _run(_memory_universe())
-    assert sorted(set(entered)) == ["gather", "repack", "wire"]
-    assert len(entered) == 3 * N_BLOCKS
+    assert sorted(set(entered)) == ["gather", "wire"]
+    assert len(entered) == 2 * N_BLOCKS
 
 
 def test_only_leaves_are_bridged():
@@ -330,7 +340,7 @@ def test_spans_and_annotations_share_the_wall_clock(tmp_path, no_tracing):
                       if e.get("name") == name and e.get("ph") == "X"
                       and e.get("cat") == cat)
 
-    for name in ("gather", "repack"):
+    for name in ("gather", "wire"):
         s = starts(sdoc["traceEvents"], name, wall0, "mdtpu")
         t = starts(tdoc["traceEvents"], name, base, "user_annotation")
         assert len(s) == len(t) == N_BLOCKS
