@@ -22,11 +22,11 @@ def _backend(cfg, device):
                 transfer_dtype=cfg["transfer_dtype"])
 
 
-def run(u, cfg, device, stop=None):
+def run(u, cfg, device, stop=None, **kwargs):
     from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
 
     a = AlignedRMSF(u, select=cfg["select"], engine=cfg["engine"])
-    a.run(stop=stop, **_backend(cfg, device))
+    a.run(stop=stop, **_backend(cfg, device), **kwargs)
     sync(device)
     answer = {"rmsf": to_host(a.results["rmsf"]),
               "average": to_host(a.results["average"])}

@@ -7,6 +7,7 @@ import json
 import os
 import subprocess
 import sys
+import textwrap
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -21,6 +22,26 @@ RDF = {"config": {"n_waters": 512, "n_atoms": 1536, "box_A": 24.8,
                   "warmup_frames": 8, "engine": "pallas"}}
 TINY = {"rmsf_heavy_100k.memory": RMSF, "rmsf_heavy_100k.store": STORE,
         "rdf_oo_32k.memory": RDF, "rmsf_heavy_100k_4rank.memory": RMSF}
+#: the ``resident`` source, which no cell names yet: the memory cell at
+#: its tiny size, its traffic swapped for ``traffic/resident.json``'s
+RESIDENT = ("rmsf_heavy_100k.memory",
+            dict(RMSF, traffic={"source": "resident",
+                                "cache_bytes": 8589934592}))
+
+
+def listed(cell):
+    """The per-layer metrics ``BENCHMARK.json`` lists for ``cell``."""
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    return {m["name"] for m in bench["per_layer"]
+            if cell in m.get("workloads", ())}
+
+
+def plant(tmp_path, code):
+    """The environment of a run whose processes first run ``code`` (a
+    ``sitecustomize`` module in ``tmp_path``)."""
+    (tmp_path / "sitecustomize.py").write_text(textwrap.dedent(code))
+    return {"PYTHONPATH": os.pathsep.join([str(tmp_path), ROOT])}
 
 
 def with_config(sizes, **keys):

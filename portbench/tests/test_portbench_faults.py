@@ -6,16 +6,13 @@ where it is produced, and the exchange between ranks left out.  Each
 fault is planted in the program by a ``sitecustomize`` module, so it
 reaches every process of a run."""
 
-import os
-import textwrap
-
 import numpy as np
 import pytest
 
 from portbench import harness
 from portbench.analyses import inter_rdf
 from portbench.frames import Frames
-from portbench.tests._tiny import ROOT, TINY, run_cpu, with_config
+from portbench.tests._tiny import RESIDENT, TINY, plant, run_cpu, with_config
 
 RMSF_FAULTS = {
     "unchanged": """
@@ -109,16 +106,11 @@ CASES = ([("rmsf_heavy_100k.memory", f) for f in RMSF_FAULTS]
             for f in list(RMSF_FAULTS) + ["exchange"]])
 
 
-def _plant(tmp_path, code):
-    (tmp_path / "sitecustomize.py").write_text(textwrap.dedent(code))
-    return {"PYTHONPATH": os.pathsep.join([str(tmp_path), ROOT])}
-
-
 @pytest.mark.parametrize("cell,fault", CASES)
 def test_a_broken_timed_path_is_not_correct(tmp_path, cell, fault):
     table = RDF_FAULTS if "rdf" in cell else dict(RMSF_FAULTS,
                                                   exchange=EXCHANGE)
-    rc, result, err = run_cpu(cell, TINY[cell], env=_plant(tmp_path,
+    rc, result, err = run_cpu(cell, TINY[cell], env=plant(tmp_path,
                                                            table[fault]))
     assert rc == 0, err[-3000:]
     assert result["correct"] is False, result["checks"]
@@ -130,6 +122,23 @@ def test_a_broken_timed_path_is_not_correct(tmp_path, cell, fault):
 def test_rmsf_control_int8_is_not_correct(cell):
     rc, result, err = run_cpu(cell, with_config(TINY[cell],
                                                 transfer_dtype="int8"))
+    assert rc == 0, err[-3000:]
+    assert result["correct"] is False, result["checks"]
+
+
+@pytest.mark.parametrize("fault", sorted(RMSF_FAULTS))
+def test_a_broken_resident_path_is_not_correct(tmp_path, fault):
+    cell, sizes = RESIDENT
+    rc, result, err = run_cpu(cell, sizes, env=plant(tmp_path,
+                                                     RMSF_FAULTS[fault]))
+    assert rc == 0, err[-3000:]
+    assert result["correct"] is False, result["checks"]
+    assert result["failed"] == result["attempted"]
+
+
+def test_resident_control_int8_is_not_correct():
+    cell, sizes = RESIDENT
+    rc, result, err = run_cpu(cell, with_config(sizes, transfer_dtype="int8"))
     assert rc == 0, err[-3000:]
     assert result["correct"] is False, result["checks"]
 
