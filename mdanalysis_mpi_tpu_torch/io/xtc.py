@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+from contextlib import contextmanager
 
 import numpy as np
 
@@ -57,6 +58,7 @@ class XTCReader(ReaderBase):
     def __init__(self, path: str, n_atoms: int | None = None):
         self._path = path
         self._offsets, self._natoms = _scan(path)
+        self._size = os.path.getsize(path)
         if n_atoms is not None and n_atoms != self._natoms:
             raise ValueError(
                 f"XTC {path!r} has {self._natoms} atoms, expected {n_atoms}")
@@ -65,6 +67,18 @@ class XTCReader(ReaderBase):
     @property
     def n_frames(self) -> int:
         return len(self._offsets)
+
+    @contextmanager
+    def _decoding(self, start: int, stop: int):
+        """The ``decode`` phase around one native decode of frames
+        ``[start, stop)`` made while staging; their compressed bytes,
+        from the frame offsets, count in
+        ``mdtpu_xtc_decoded_bytes_total``."""
+        with TIMERS.phase("decode"):
+            yield
+        end = self._offsets[stop] if stop < self.n_frames else self._size
+        METRICS.inc("mdtpu_xtc_decoded_bytes_total",
+                    int(end - self._offsets[start]))
 
     @property
     def n_atoms(self) -> int:
@@ -154,6 +168,12 @@ class XTCReader(ReaderBase):
         exact re-run on overflow, hints scoped per selection content).
         Planar requests stage through this same fused decode, then one
         ``planar_repack`` on the quantized bytes.
+
+        Each native decode (the fused call, its re-run on overflow, the
+        float32 read that seeds a fresh reader's hint) runs in a
+        ``decode`` phase inside ``gather`` and counts its compressed
+        bytes in ``mdtpu_xtc_decoded_bytes_total``; a re-run also counts
+        in ``mdtpu_xtc_redecodes_total``.
         """
         if not 0 <= start <= stop <= self.n_frames:
             raise IndexError(
@@ -177,7 +197,8 @@ class XTCReader(ReaderBase):
                                           quantize=quantize)
         with TIMERS.phase("gather"):
             if qmode is None:
-                block, boxes = self.read_block(start, stop, sel=sel)
+                with self._decoding(start, stop):
+                    block, boxes = self.read_block(start, stop, sel=sel)
                 METRICS.inc("mdtpu_stage_blocks_total", path="generic")
                 return block, boxes, None
             if start == stop:
@@ -195,20 +216,24 @@ class XTCReader(ReaderBase):
                 # float64 scale arithmetic, shared policy constants —
                 # must stay bit-identical to ReaderBase._quantize_staged
                 scale = self.QUANT_TARGET / (hint * self.QUANT_MARGIN)
-                q, box, vmax, overflowed = native.xtc_stage_i16(
-                    self._path, offs, self._natoms, sel, scale)
+                with self._decoding(start, stop):
+                    q, box, vmax, overflowed = native.xtc_stage_i16(
+                        self._path, offs, self._natoms, sel, scale)
                 if vmax > hint:
                     hints[key] = vmax
                 if overflowed:
                     scale = self.QUANT_TARGET / max(vmax, 1e-30)
-                    q, box, vmax, _ = native.xtc_stage_i16(
-                        self._path, offs, self._natoms, sel, scale)
+                    with self._decoding(start, stop):
+                        q, box, vmax, _ = native.xtc_stage_i16(
+                            self._path, offs, self._natoms, sel, scale)
+                    METRICS.inc("mdtpu_xtc_redecodes_total")
                 METRICS.inc("mdtpu_stage_blocks_total", path="native")
                 return q, self._dims_from_raw(box), np.float32(1.0 / scale)
             # first block for this selection: fused f32 decode,
             # exact-scale quantize (bit-identical to the NumPy
             # reference), seed the hint
-            block, boxes = self.read_block(start, stop, sel=sel)
+            with self._decoding(start, stop):
+                block, boxes = self.read_block(start, stop, sel=sel)
             q, inv_scale = self._quantize_staged(block, None, sel_fp=key)
             return q, boxes, inv_scale
 

@@ -496,13 +496,18 @@ CANARY_HISTOGRAMS = (
 #: int16 block, over host threads; ``numpy`` — a NumPy
 #: quantize or gather, the native library's fallback included;
 #: ``store_direct`` — the block store's raw chunk slices; ``generic`` —
-#: the reader's frame-by-frame ``read_block``), and the host bytes the
-#: executors hand to the copy to the device.  Recorded live at the
-#: readers' staging sites and ``executors._run_batches``' ``_place``;
-#: a run's deltas ride its report as ``observability["staging"]``.
+#: the reader's frame-by-frame ``read_block``), the host bytes the
+#: executors hand to the copy to the device, and of ``XTCReader``'s
+#: staging the compressed bytes its native decodes read and the blocks
+#: it decoded twice (an adaptive scale that overflowed).  Recorded live
+#: at the readers' staging sites and ``executors._run_batches``'
+#: ``_place``; a run's deltas ride its report as
+#: ``observability["staging"]``.
 STAGING_COUNTERS = (
     "mdtpu_stage_blocks_total",
     "mdtpu_staged_bytes_total",
+    "mdtpu_xtc_decoded_bytes_total",
+    "mdtpu_xtc_redecodes_total",
 )
 
 #: Staging gauge, the port's own: the host threads the last native

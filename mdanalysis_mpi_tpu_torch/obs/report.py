@@ -26,9 +26,10 @@ time-window-slice caveat; the 2-worker regression test in
 Staging: a process-attributed report also carries ``staging``, the
 run's deltas of the staging counters (``obs/metrics.py``
 ``STAGING_COUNTERS``): ``{"blocks": {path: n}, "bytes": n}``, present
-only when the run staged.  The counters are process-wide, so a
-job-attributed report leaves it out rather than book another job's
-blocks.
+only when the run staged, with ``"xtc_decoded_bytes": n`` and
+``"xtc_redecodes": n`` beside them where the run decoded an XTC.  The
+counters are process-wide, so a job-attributed report leaves it out
+rather than book another job's blocks.
 
 Near-free by construction: capture is a few small dict copies per
 run() call (plus one list append when a window opens), nothing per
@@ -133,18 +134,25 @@ def finish_capture(cap: dict, analysis: str, backend: str,
     return report
 
 
-def _staging_counts() -> tuple[dict, dict]:
+#: the unlabelled XTC staging counters and their keys in the summary
+_XTC_COUNTS = (("mdtpu_xtc_decoded_bytes_total", "xtc_decoded_bytes"),
+               ("mdtpu_xtc_redecodes_total", "xtc_redecodes"))
+
+
+def _staging_counts() -> tuple:
     """The staging counters now: (blocks by label key, bytes by label
-    key)."""
+    key, then each of :data:`_XTC_COUNTS` by label key)."""
     from mdanalysis_mpi_tpu_torch.obs.metrics import METRICS
 
-    return (METRICS.counter("mdtpu_stage_blocks_total"),
-            METRICS.counter("mdtpu_staged_bytes_total"))
+    return ((METRICS.counter("mdtpu_stage_blocks_total"),
+             METRICS.counter("mdtpu_staged_bytes_total"))
+            + tuple(METRICS.counter(name) for name, _ in _XTC_COUNTS))
 
 
 def _staging_delta(before: tuple, after: tuple) -> dict | None:
     """``{"blocks": {path: n}, "bytes": n}`` between two
-    :func:`_staging_counts`, or None when nothing was staged."""
+    :func:`_staging_counts`, with each of :data:`_XTC_COUNTS` that
+    moved, or None when nothing was staged."""
     blocks = {}
     for key, n in after[0].items():
         d = n - before[0].get(key, 0)
@@ -154,4 +162,9 @@ def _staging_delta(before: tuple, after: tuple) -> dict | None:
     nbytes = sum(after[1].values()) - sum(before[1].values())
     if not blocks and not nbytes:
         return None
-    return {"blocks": blocks, "bytes": nbytes}
+    out = {"blocks": blocks, "bytes": nbytes}
+    for (_, key), b, a in zip(_XTC_COUNTS, before[2:], after[2:]):
+        d = sum(a.values()) - sum(b.values())
+        if d:
+            out[key] = d
+    return out

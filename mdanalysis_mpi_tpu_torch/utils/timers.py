@@ -28,14 +28,18 @@ timed.  Disabled-mode cost is one attribute check.
 
 Profiler bridge: while a ``torch.profiler`` profile is recording, the
 leaf staging phases (:data:`BRIDGED_PHASES`: ``gather``, ``repack``,
-``chunk_read``, ``wire``) also open a ``torch.profiler.record_function``
-of their own name, so host staging shows on the device trace's
-timeline as user annotations.  Waits and enclosing phases are never
-bridged: a trace reader names an idle gap by the single host event
-that covers most of it, and an enclosing span would take every gap
-from the leaves inside it.  Torch is found through ``sys.modules``
-(this module imports none); with no profiler recording the bridge
-costs one set lookup and one module lookup a bridged phase.
+``chunk_read``, ``wire``, and ``decode``, the XTC reader's native
+decodes inside its ``gather``) also open a
+``torch.profiler.record_function`` of their own name, so host staging
+shows on the device trace's timeline as user annotations.  Waits and
+enclosing phases are never bridged: a trace reader names an idle gap by
+the single host event that covers most of it, and an enclosing span
+would take every gap from the leaves inside it.  ``gather`` is the one
+bridged phase that can enclose another: on the XTC path a gap that
+``decode`` covers is covered by its ``gather`` too.  Torch is found
+through ``sys.modules`` (this module imports none); with no profiler
+recording the bridge costs one set lookup and one module lookup a
+bridged phase.
 """
 
 from __future__ import annotations
@@ -157,7 +161,8 @@ def _attribute_window(name: str, seconds: float) -> None:
 
 #: The leaf staging phases that become ``record_function`` annotations
 #: while a torch profiler records (README.md, "Profiler bridge").
-BRIDGED_PHASES = frozenset(("gather", "repack", "chunk_read", "wire"))
+BRIDGED_PHASES = frozenset(("gather", "repack", "chunk_read", "wire",
+                            "decode"))
 
 
 def _profiler_annotation(name: str):

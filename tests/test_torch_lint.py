@@ -901,11 +901,14 @@ def test_baseline_requires_justification(tmp_path):
 
 #: The port-only names the JAX package's docs/OBSERVABILITY.md does not
 #: hold, each baselined with its justification: the scheduler's memory
-#: guard instant, and the staging phases, counters and gauge.
+#: guard instant, and the staging phases, counters (the XTC decode's
+#: among them) and gauge.
 PORT_ONLY_NAMES = [
     ("MDT203", "mdtpu_stage_blocks_total"),
     ("MDT203", "mdtpu_stage_threads"),
     ("MDT203", "mdtpu_staged_bytes_total"),
+    ("MDT203", "mdtpu_xtc_decoded_bytes_total"),
+    ("MDT203", "mdtpu_xtc_redecodes_total"),
     ("MDT204", "admission_mem_wait"),
     ("MDT204", "chunk_read"),
     ("MDT204", "pass1"),

@@ -135,7 +135,8 @@ def test_known_metric_registry_equals_jax():
     port, ref = _name_tables(metrics), _name_tables(jmetrics)
     assert "_TELEMETRY_COUNTERS" in port and "FUSED_COUNTERS" in port
     assert port.pop("STAGING_COUNTERS") == (
-        "mdtpu_stage_blocks_total", "mdtpu_staged_bytes_total")
+        "mdtpu_stage_blocks_total", "mdtpu_staged_bytes_total",
+        "mdtpu_xtc_decoded_bytes_total", "mdtpu_xtc_redecodes_total")
     assert port.pop("STAGING_GAUGES") == ("mdtpu_stage_threads",)
     assert port == ref
     assert metrics.TIME_BUCKETS == jmetrics.TIME_BUCKETS

@@ -33,7 +33,7 @@ from mdanalysis_mpi_tpu_torch.utils.timers import TIMERS, device_trace
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_ATOMS, N_FRAMES, BATCH = 60, 64, 16
 N_BLOCKS = N_FRAMES // BATCH
-LEAVES = ("gather", "repack", "chunk_read", "wire")
+LEAVES = ("gather", "repack", "chunk_read", "wire", "decode")
 #: never bridged: waits and enclosing phases
 UNBRIDGED = ("stage_wait", "stage", "pass1", "pass2", "run", "execute",
              "dispatch")
@@ -256,6 +256,8 @@ def test_staging_counters_are_pinned_and_in_the_snapshot():
         os.path.join(REPO, "mdanalysis_mpi_tpu_torch", "obs", "metrics.py"))
     assert pins == {"mdtpu_stage_blocks_total": "counter",
                     "mdtpu_staged_bytes_total": "counter",
+                    "mdtpu_xtc_decoded_bytes_total": "counter",
+                    "mdtpu_xtc_redecodes_total": "counter",
                     "mdtpu_stage_threads": "gauge"}
     assert set(pins) == set(obs_metrics.STAGING_COUNTERS
                             + obs_metrics.STAGING_GAUGES)
