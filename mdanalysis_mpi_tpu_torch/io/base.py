@@ -288,8 +288,8 @@ def planar_repack(q: np.ndarray) -> np.ndarray:
     ``(3, B, S)`` component-plane layout the fused kernel
     consumes (ops/fused_planar.py).  The host copy the planar path pays
     where no native pass writes the planes itself (the store, the
-    generic and XTC readers, int8, the NumPy fallback; a
-    ``MemoryReader``'s int16 block runs none) — on quantized bytes,
+    generic reader, int8, the NumPy fallback; a ``MemoryReader``'s and
+    an ``XTCReader``'s int16 blocks run none) — on quantized bytes,
     behind the staging boundary, counted in
     ``mdtpu_fused_planar_repacks_total`` and timed as the ``repack``
     phase."""

@@ -68,10 +68,17 @@ def load() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_long, ctypes.c_float, _i16p,
             ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)]
 
+        lib.xtc_stage_i16_planar.restype = ctypes.c_int
+        lib.xtc_stage_i16_planar.argtypes = [
+            ctypes.c_char_p, _i64p, ctypes.c_long, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_long, ctypes.c_float, ctypes.c_long,
+            _i16p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)]
+
         lib.xtc_stage_f32.restype = ctypes.c_int
         lib.xtc_stage_f32.argtypes = [
             ctypes.c_char_p, _i64p, ctypes.c_long, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_long, _f32p, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_long, ctypes.c_long, _f32p,
+            ctypes.c_void_p]
 
         lib.xtc_write.restype = ctypes.c_int
         lib.xtc_write.argtypes = [
@@ -252,49 +259,79 @@ def stage_gather_quantize_scaled_planar(src: np.ndarray, sel, scale: float,
     return out, float(vmax.value), rc == 1
 
 
+def _xtc_args(offsets: np.ndarray, natoms: int, sel, want_box: bool):
+    """``(offsets, n, idx, n_sel, idx_p, box, box_p)`` for an XTC
+    staging call: the int64 frame offsets, the selection
+    (:func:`_sel_arg`; the caller keeps ``idx`` alive across the call)
+    and the ``(n, 9)`` nm box buffer, or None."""
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    n = len(offsets)
+    idx, s, idx_p = _sel_arg(sel, natoms)
+    box = np.empty((n, 9), dtype=np.float32) if want_box else None
+    box_p = box.ctypes.data_as(ctypes.c_void_p) if want_box else None
+    return offsets, n, idx, s, idx_p, box, box_p
+
+
 def xtc_stage_i16(path: str, offsets: np.ndarray, natoms: int, sel,
                   scale: float, want_box: bool = True):
     """Fused XTC decode → selection gather → nm→Å → int16 quantize.
 
     Never materializes the full-system float32 block (each frame decodes
-    into a cache-hot per-worker scratch; only the selection's int16
-    bytes reach DRAM) — the cold-path staging kernel.  Returns
+    into a cache-hot per-thread scratch; only the selection's int16
+    bytes reach DRAM) — the cold-path staging kernel, its frames split
+    over ``MDTPU_DECODE_THREADS`` threads (default 1).  Returns
     ``(q (F, S, 3) int16, box (F, 9) nm float32 | None, max_abs_Å,
     overflowed)``; on ``overflowed`` the caller re-runs with an exact
     scale from ``max_abs_Å`` (same contract as
     :func:`stage_gather_quantize_scaled`).
     """
     lib = load()
-    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
-    n = len(offsets)
-    idx, s, idx_p = _sel_arg(sel, natoms)
+    offsets, n, idx, s, idx_p, box, box_p = _xtc_args(
+        offsets, natoms, sel, want_box)
     out = np.empty((n, s, 3), dtype=np.int16)
-    box = np.empty((n, 9), dtype=np.float32) if want_box else None
     vmax = ctypes.c_float(0.0)
     rc = lib.xtc_stage_i16(
         path.encode(), offsets, n, natoms, idx_p, s,
-        ctypes.c_float(scale), out,
-        box.ctypes.data_as(ctypes.c_void_p) if want_box else None,
-        ctypes.byref(vmax))
+        ctypes.c_float(scale), out, box_p, ctypes.byref(vmax))
     if rc < 0:
         raise IOError(f"xtc_stage_i16 failed for {path!r} (rc={rc})")
     return out, box, float(vmax.value), rc == 1
 
 
-def xtc_stage_f32(path: str, offsets: np.ndarray, natoms: int, sel,
-                  want_box: bool = True):
-    """Fused XTC decode → selection gather → nm→Å (float32 staging
-    path); see :func:`xtc_stage_i16`.  Returns ``(coords (F, S, 3) Å,
-    box (F, 9) nm | None)``."""
+def xtc_stage_i16_planar(path: str, offsets: np.ndarray, natoms: int, sel,
+                         scale: float, threads: int, want_box: bool = True):
+    """:func:`xtc_stage_i16` writing the ``(3, F, S)`` planes straight
+    from the decode, its frames split over ``threads`` host threads,
+    each decoding into its own scratch.  Returns ``(planes, box,
+    max_abs_Å, overflowed)`` with the same contract: the bytes of
+    ``planar_repack`` of :func:`xtc_stage_i16`'s block at any thread
+    count."""
     lib = load()
-    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
-    n = len(offsets)
-    idx, s, idx_p = _sel_arg(sel, natoms)
+    offsets, n, idx, s, idx_p, box, box_p = _xtc_args(
+        offsets, natoms, sel, want_box)
+    out = np.empty((3, n, s), dtype=np.int16)
+    vmax = ctypes.c_float(0.0)
+    rc = lib.xtc_stage_i16_planar(
+        path.encode(), offsets, n, natoms, idx_p, s,
+        ctypes.c_float(scale), threads, out, box_p, ctypes.byref(vmax))
+    if rc < 0:
+        raise IOError(f"xtc_stage_i16_planar failed for {path!r} (rc={rc})")
+    return out, box, float(vmax.value), rc == 1
+
+
+def xtc_stage_f32(path: str, offsets: np.ndarray, natoms: int, sel,
+                  want_box: bool = True, threads: int | None = None):
+    """Fused XTC decode → selection gather → nm→Å (float32 staging
+    path); see :func:`xtc_stage_i16`.  Its frames split over ``threads``
+    host threads, or over ``MDTPU_DECODE_THREADS`` threads when None.
+    Returns ``(coords (F, S, 3) Å, box (F, 9) nm | None)``."""
+    lib = load()
+    offsets, n, idx, s, idx_p, box, box_p = _xtc_args(
+        offsets, natoms, sel, want_box)
     out = np.empty((n, s, 3), dtype=np.float32)
-    box = np.empty((n, 9), dtype=np.float32) if want_box else None
     rc = lib.xtc_stage_f32(
-        path.encode(), offsets, n, natoms, idx_p, s, out,
-        box.ctypes.data_as(ctypes.c_void_p) if want_box else None)
+        path.encode(), offsets, n, natoms, idx_p, s,
+        0 if threads is None else threads, out, box_p)
     if rc != 0:
         raise IOError(f"xtc_stage_f32 failed for {path!r} (rc={rc})")
     return out, box

@@ -556,6 +556,148 @@ static int xtc_read_header(Reader& r, XtcHeader& h) {
     return r.ok ? 0 : -2;
 }
 
+// Seek to the frame at `offset`, check its header against natoms and
+// decode its coordinates (nm) into coords: 0 or a negative error.
+static int xtc_decode_at(Reader& r, long offset, int natoms,
+                         std::vector<unsigned char>& databuf, float* coords,
+                         XtcHeader& h) {
+    if (fseek(r.f, offset, SEEK_SET) != 0) return -2;
+    if (xtc_read_header(r, h) != 0) return -3;
+    if (h.natoms != natoms) return -4;
+    int lsize = r.i32();
+    if (!r.ok || lsize != natoms) return -5;
+    return xtc_decode_coords(r, lsize, databuf, coords);
+}
+
+// The block quantizers' float32 product and round-half-even, clamped to
+// the int16 range (the caller rejects a clipped block by max|x| * scale).
+static inline float quantize_clamped(float x, float scale) {
+    float q = std::nearbyintf(x * scale);
+    if (q > 32767.0f) q = 32767.0f;
+    if (q < -32767.0f) q = -32767.0f;
+    return q;
+}
+
+// Run body(t, lo, hi) over [0, n) on `nthreads` threads (the calling thread
+// is thread nthreads - 1): each thread claims the next chunk of frames until
+// none is left, so a thread the host delays holds up one chunk, not a fixed
+// share of the block.  body keeps what it reduces per thread t.  A thread
+// that cannot be started is skipped (std::thread's exceptions must not
+// unwind across this C ABI): the others take its chunks, and the bytes do
+// not depend on which thread writes a frame.
+template <class Body>
+static void split_frames(long n, long nthreads, const Body& body) {
+    const long chunk = std::max(1L, n / (nthreads * 8));
+    std::atomic<long> next(0);
+    auto work = [&body, &next, chunk, n](long t) {
+        for (long lo; (lo = next.fetch_add(chunk)) < n;)
+            body(t, lo, std::min(lo + chunk, n));
+    };
+    std::vector<std::thread> workers;
+    for (long t = 0; t + 1 < nthreads; t++) {
+        try {
+            workers.emplace_back(work, t);
+        } catch (...) {
+        }
+    }
+    work(nthreads - 1);
+    for (auto& w : workers) w.join();
+}
+
+static long clamp_threads(long n_threads, long n_frames) {
+    if (n_threads > n_frames) n_threads = n_frames;
+    return n_threads < 1 ? 1 : n_threads;
+}
+
+// One thread of a split XTC staging pass: its own file handle, the XDR
+// byte buffer, and a scratch that one decoded frame (natoms * 3 floats, nm)
+// fills and that stays in the thread's cache while the frame is staged from
+// it.  Only the selection's staged bytes reach DRAM.
+struct XtcWorker {
+    FILE* f = nullptr;
+    std::vector<unsigned char> databuf;
+    std::vector<float> scratch;
+    float vmax = 0.0f;  // the thread's max|x|, Å
+    int rc = 0;
+    XtcWorker() = default;
+    XtcWorker(const XtcWorker&) = delete;
+    XtcWorker& operator=(const XtcWorker&) = delete;
+    ~XtcWorker() {
+        if (f) fclose(f);
+    }
+};
+
+// Decode the frames at offsets[0, n) over ws.size() threads (split_frames)
+// and stage each with stage(w, i) from its thread's scratch; box (9 floats a
+// frame, nm) may be null.  0, or the first failing thread's error.
+template <class Stage>
+static int xtc_split_stage(const char* path, const long* offsets, long n,
+                           int natoms, float* box, std::vector<XtcWorker>& ws,
+                           const Stage& stage) {
+    split_frames(n, (long)ws.size(), [&](long t, long lo, long hi) {
+        XtcWorker& w = ws[(size_t)t];
+        if (w.rc != 0) return;
+        if (!w.f) {
+            w.f = fopen(path, "rb");
+            if (!w.f) { w.rc = -1; return; }
+            w.scratch.resize((size_t)natoms * 3);
+        }
+        Reader r{w.f};
+        for (long i = lo; i < hi; i++) {
+            XtcHeader h;
+            w.rc = xtc_decode_at(r, offsets[i], natoms, w.databuf,
+                                 w.scratch.data(), h);
+            if (w.rc != 0) return;
+            if (box) std::memcpy(box + i * 9, h.box, 9 * sizeof(float));
+            stage(w, i);
+        }
+    });
+    for (const XtcWorker& w : ws)
+        if (w.rc != 0) return w.rc;
+    return 0;
+}
+
+// Fused decode → gather → nm→Å → int16 of the selection over nthreads
+// threads, into the (n, n_sel, 3) block or, Planar, the (3, n, n_sel)
+// planes: nm → Å as a float32 multiply, then quantize_clamped, the same
+// bytes at any thread count and in either layout.  Returns 0, 1 when
+// `scale` would have clipped real data (*max_abs_out holds the true max in
+// Å; the caller re-runs with an exact scale), or a negative error.
+template <bool Planar>
+static int xtc_stage_i16_split(const char* path, const long* offsets, long n,
+                               int natoms, const int32_t* sel, long n_sel,
+                               float scale, long nthreads, int16_t* out,
+                               float* box, float* max_abs_out) {
+    if (n < 0 || natoms < 0 || n_sel < 0 || !(scale > 0.0f)) return -9;
+    if (sel == nullptr) n_sel = natoms;
+    std::vector<XtcWorker> ws((size_t)clamp_threads(nthreads, n));
+    const size_t plane = (size_t)n * n_sel;
+    int rc = xtc_split_stage(path, offsets, n, natoms, box, ws,
+                             [&](XtcWorker& w, long i) {
+        const float* scr = w.scratch.data();
+        int16_t* o = out + (size_t)i * n_sel * (Planar ? 1 : 3);
+        float vmax = w.vmax;
+        for (long s = 0; s < n_sel; s++) {
+            const float* p = scr + (size_t)(sel ? sel[s] : s) * 3;
+            for (int d = 0; d < 3; d++) {
+                float x = p[d] * 10.0f;
+                float a = std::fabs(x);
+                if (a > vmax) vmax = a;
+                int16_t q = (int16_t)quantize_clamped(x, scale);
+                if (Planar) o[d * plane + s] = q;
+                else o[s * 3 + d] = q;
+            }
+        }
+        w.vmax = vmax;
+    });
+    if (rc != 0) return rc;
+    float vmax = 0.0f;
+    for (const XtcWorker& w : ws)
+        if (w.vmax > vmax) vmax = w.vmax;
+    *max_abs_out = vmax;
+    return ((double)vmax * (double)scale > 32767.0) ? 1 : 0;
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------
@@ -613,22 +755,18 @@ static int xtc_read_range(const char* path, const long* offsets,
     if (!f) return -1;
     Reader r{f};
     std::vector<unsigned char> databuf;
+    int rc = 0;
     for (long i = lo; i < hi; i++) {
-        if (fseek(f, offsets[i], SEEK_SET) != 0) { fclose(f); return -2; }
         XtcHeader h;
-        if (xtc_read_header(r, h) != 0) { fclose(f); return -3; }
-        if (h.natoms != natoms) { fclose(f); return -4; }
-        int lsize = r.i32();
-        if (!r.ok || lsize != natoms) { fclose(f); return -5; }
-        int rc = xtc_decode_coords(r, lsize, databuf,
-                                   coords + (size_t)i * natoms * 3);
-        if (rc != 0) { fclose(f); return rc; }
+        rc = xtc_decode_at(r, offsets[i], natoms, databuf,
+                           coords + (size_t)i * natoms * 3, h);
+        if (rc != 0) break;
         if (box) std::memcpy(box + i * 9, h.box, 9 * sizeof(float));
         if (times) times[i] = h.time;
         if (steps) steps[i] = h.step;
     }
     fclose(f);
-    return 0;
+    return rc;
 }
 
 // Frame-parallel decode: MDTPU_DECODE_THREADS workers (default 1; the
@@ -685,155 +823,56 @@ int xtc_read_frames(const char* path, const long* offsets, long n,
 // re-reads it to gather the selection, and (int16 path) streams it once
 // more to quantize — at 100k atoms / 50k selected that is ~3.6 MB of
 // DRAM traffic per frame on top of the decode itself.  Here each frame
-// decodes into a per-worker scratch that stays cache-hot and only the
-// selection's int16/f32 bytes ever reach DRAM.  Same thread model as
-// xtc_read_frames (disjoint frame ranges, MDTPU_DECODE_THREADS).
+// decodes into a per-thread scratch that stays cache-hot and only the
+// selection's int16/f32 bytes ever reach DRAM (xtc_split_stage).  The
+// interleaved entry points split their frames over MDTPU_DECODE_THREADS
+// threads; the planar one over the caller's count.
 // ---------------------------------------------------------------------
 
-// One worker's range.  sel may be null (all atoms).  out is int16
-// (n_sel*3 per frame, quantized Å at `scale`); box (9 per frame, nm) may
-// be null.  Tracks the worker's max |x| in Å; clamps on overflow (the
-// caller rejects via the vmax*scale criterion, like
-// stage_gather_quantize_i16_scaled).
-static int xtc_stage_range_i16(const char* path, const long* offsets,
-                               long lo, long hi, int natoms,
-                               const int32_t* sel, long n_sel, float scale,
-                               int16_t* out, float* box, float* vmax_out) {
-    FILE* f = fopen(path, "rb");
-    if (!f) return -1;
-    Reader r{f};
-    std::vector<float> scratch((size_t)natoms * 3);
-    std::vector<unsigned char> databuf;
-    float vmax = 0.0f;
-    for (long i = lo; i < hi; i++) {
-        if (fseek(f, offsets[i], SEEK_SET) != 0) { fclose(f); return -2; }
-        XtcHeader h;
-        if (xtc_read_header(r, h) != 0) { fclose(f); return -3; }
-        if (h.natoms != natoms) { fclose(f); return -4; }
-        int lsize = r.i32();
-        if (!r.ok || lsize != natoms) { fclose(f); return -5; }
-        int rc = xtc_decode_coords(r, lsize, databuf, scratch.data());
-        if (rc != 0) { fclose(f); return rc; }
-        int16_t* o = out + (size_t)i * n_sel * 3;
-        for (long s = 0; s < n_sel; s++) {
-            const float* p = scratch.data()
-                + (size_t)(sel ? sel[s] : s) * 3;
-            for (int d = 0; d < 3; d++) {
-                // nm → Å as a float32 multiply, then the same f32
-                // product + round-half-even as the block quantizers
-                // (bit-compatible with the decode-then-quantize path)
-                float x = p[d] * 10.0f;
-                float a = std::fabs(x);
-                if (a > vmax) vmax = a;
-                float q = std::nearbyintf(x * scale);
-                if (q > 32767.0f) q = 32767.0f;
-                if (q < -32767.0f) q = -32767.0f;
-                o[s * 3 + d] = (int16_t)q;
-            }
-        }
-        if (box) std::memcpy(box + i * 9, h.box, 9 * sizeof(float));
-    }
-    fclose(f);
-    *vmax_out = vmax;
-    return 0;
+// Fused decode+stage, int16, into the (n, n_sel, 3) block: returns 0 ok,
+// 1 = the provided scale would have clipped real data (max_abs_out holds
+// the true max in Å; caller re-runs with an exact scale), negative =
+// decode error.
+int xtc_stage_i16(const char* path, const long* offsets, long n,
+                  int natoms, const int32_t* sel, long n_sel, float scale,
+                  int16_t* out, float* box, float* max_abs_out) {
+    return xtc_stage_i16_split<false>(path, offsets, n, natoms, sel, n_sel,
+                                      scale, xtc_nthreads(n), out, box,
+                                      max_abs_out);
 }
 
-// float32 variant: decode → gather → nm→Å, selection bytes only.
-static int xtc_stage_range_f32(const char* path, const long* offsets,
-                               long lo, long hi, int natoms,
-                               const int32_t* sel, long n_sel,
-                               float* out, float* box) {
-    FILE* f = fopen(path, "rb");
-    if (!f) return -1;
-    Reader r{f};
-    std::vector<float> scratch((size_t)natoms * 3);
-    std::vector<unsigned char> databuf;
-    for (long i = lo; i < hi; i++) {
-        if (fseek(f, offsets[i], SEEK_SET) != 0) { fclose(f); return -2; }
-        XtcHeader h;
-        if (xtc_read_header(r, h) != 0) { fclose(f); return -3; }
-        if (h.natoms != natoms) { fclose(f); return -4; }
-        int lsize = r.i32();
-        if (!r.ok || lsize != natoms) { fclose(f); return -5; }
-        int rc = xtc_decode_coords(r, lsize, databuf, scratch.data());
-        if (rc != 0) { fclose(f); return rc; }
+// xtc_stage_i16 writing the (3, n, n_sel) planes, its frames split over
+// n_threads threads: the bytes of a planar repack of xtc_stage_i16's block.
+int xtc_stage_i16_planar(const char* path, const long* offsets, long n,
+                         int natoms, const int32_t* sel, long n_sel,
+                         float scale, long n_threads, int16_t* out_planes,
+                         float* box, float* max_abs_out) {
+    if (n_threads < 1) return -9;
+    return xtc_stage_i16_split<true>(path, offsets, n, natoms, sel, n_sel,
+                                     scale, n_threads, out_planes, box,
+                                     max_abs_out);
+}
+
+// Fused decode+stage, float32 (Å out, (n, n_sel, 3)), its frames split
+// over n_threads threads, or over MDTPU_DECODE_THREADS when n_threads < 1.
+int xtc_stage_f32(const char* path, const long* offsets, long n,
+                  int natoms, const int32_t* sel, long n_sel, long n_threads,
+                  float* out, float* box) {
+    if (n < 0 || natoms < 0 || n_sel < 0) return -9;
+    if (sel == nullptr) n_sel = natoms;
+    std::vector<XtcWorker> ws((size_t)clamp_threads(
+        n_threads < 1 ? xtc_nthreads(n) : n_threads, n));
+    return xtc_split_stage(path, offsets, n, natoms, box, ws,
+                           [&](XtcWorker& w, long i) {
         float* o = out + (size_t)i * n_sel * 3;
         for (long s = 0; s < n_sel; s++) {
-            const float* p = scratch.data()
+            const float* p = w.scratch.data()
                 + (size_t)(sel ? sel[s] : s) * 3;
             o[s * 3 + 0] = p[0] * 10.0f;
             o[s * 3 + 1] = p[1] * 10.0f;
             o[s * 3 + 2] = p[2] * 10.0f;
         }
-        if (box) std::memcpy(box + i * 9, h.box, 9 * sizeof(float));
-    }
-    fclose(f);
-    return 0;
-}
-
-// Fused decode+stage, int16: returns 0 ok, 1 = the provided scale would
-// have clipped real data (max_abs_out holds the true max in Å; caller
-// re-runs with an exact scale), negative = decode error.
-int xtc_stage_i16(const char* path, const long* offsets, long n,
-                  int natoms, const int32_t* sel, long n_sel, float scale,
-                  int16_t* out, float* box, float* max_abs_out) {
-    if (n < 0 || natoms < 0 || n_sel < 0 || !(scale > 0.0f)) return -9;
-    if (sel == nullptr) n_sel = natoms;
-    long nthreads = xtc_nthreads(n);
-    float vmax = 0.0f;
-    if (nthreads == 1) {
-        int rc = xtc_stage_range_i16(path, offsets, 0, n, natoms, sel,
-                                     n_sel, scale, out, box, &vmax);
-        if (rc != 0) return rc;
-    } else {
-        std::vector<std::thread> workers;
-        std::vector<int> rcs((size_t)nthreads, 0);
-        std::vector<float> vmaxs((size_t)nthreads, 0.0f);
-        long per = n / nthreads, extra = n % nthreads, lo = 0;
-        for (long t = 0; t < nthreads; t++) {
-            long hi = lo + per + (t < extra ? 1 : 0);
-            workers.emplace_back([=, &rcs, &vmaxs]() {
-                rcs[(size_t)t] = xtc_stage_range_i16(
-                    path, offsets, lo, hi, natoms, sel, n_sel, scale,
-                    out, box, &vmaxs[(size_t)t]);
-            });
-            lo = hi;
-        }
-        for (auto& w : workers) w.join();
-        for (int rc : rcs)
-            if (rc != 0) return rc;
-        for (float v : vmaxs)
-            if (v > vmax) vmax = v;
-    }
-    *max_abs_out = vmax;
-    return ((double)vmax * (double)scale > 32767.0) ? 1 : 0;
-}
-
-// Fused decode+stage, float32 (Å out).
-int xtc_stage_f32(const char* path, const long* offsets, long n,
-                  int natoms, const int32_t* sel, long n_sel,
-                  float* out, float* box) {
-    if (n < 0 || natoms < 0 || n_sel < 0) return -9;
-    if (sel == nullptr) n_sel = natoms;
-    long nthreads = xtc_nthreads(n);
-    if (nthreads == 1)
-        return xtc_stage_range_f32(path, offsets, 0, n, natoms, sel,
-                                   n_sel, out, box);
-    std::vector<std::thread> workers;
-    std::vector<int> rcs((size_t)nthreads, 0);
-    long per = n / nthreads, extra = n % nthreads, lo = 0;
-    for (long t = 0; t < nthreads; t++) {
-        long hi = lo + per + (t < extra ? 1 : 0);
-        workers.emplace_back([=, &rcs]() {
-            rcs[(size_t)t] = xtc_stage_range_f32(
-                path, offsets, lo, hi, natoms, sel, n_sel, out, box);
-        });
-        lo = hi;
-    }
-    for (auto& w : workers) w.join();
-    for (int rc : rcs)
-        if (rc != 0) return rc;
-    return 0;
+    });
 }
 
 // Write an XTC file from coords (nframes*natoms*3, nm), box (nframes*9,
@@ -1191,13 +1230,6 @@ static void exact_planar_rows(const float* src, long lo, long hi,
     }
 }
 
-static inline float quantize_clamped(float x, float scale) {
-    float q = std::nearbyintf(x * scale);
-    if (q > 32767.0f) q = 32767.0f;
-    if (q < -32767.0f) q = -32767.0f;
-    return q;
-}
-
 // Frames [lo, hi) of the one-pass kernel's planes → their max|x|.
 static float scaled_planar_rows(const float* src, long lo, long hi,
                                 long n_atoms, const int32_t* idx, long n_sel,
@@ -1220,37 +1252,6 @@ static float scaled_planar_rows(const float* src, long lo, long hi,
         }
     }
     return vmax;
-}
-
-// Run body(t, lo, hi) over [0, n) on `nthreads` threads (the calling thread
-// is thread nthreads - 1): each thread claims the next chunk of frames until
-// none is left, so a thread the host delays holds up one chunk, not a fixed
-// share of the block.  body keeps what it reduces per thread t.  A thread
-// that cannot be started is skipped (std::thread's exceptions must not
-// unwind across this C ABI): the others take its chunks, and the bytes do
-// not depend on which thread writes a frame.
-template <class Body>
-static void split_frames(long n, long nthreads, const Body& body) {
-    const long chunk = std::max(1L, n / (nthreads * 8));
-    std::atomic<long> next(0);
-    auto work = [&body, &next, chunk, n](long t) {
-        for (long lo; (lo = next.fetch_add(chunk)) < n;)
-            body(t, lo, std::min(lo + chunk, n));
-    };
-    std::vector<std::thread> workers;
-    for (long t = 0; t + 1 < nthreads; t++) {
-        try {
-            workers.emplace_back(work, t);
-        } catch (...) {
-        }
-    }
-    work(nthreads - 1);
-    for (auto& w : workers) w.join();
-}
-
-static long clamp_threads(long n_threads, long n_frames) {
-    if (n_threads > n_frames) n_threads = n_frames;
-    return n_threads < 1 ? 1 : n_threads;
 }
 
 extern "C" {

@@ -11,6 +11,7 @@ interface, bulk ``read_block`` staging, and Å↔nm unit conversion
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 from contextlib import contextmanager
 
@@ -166,8 +167,17 @@ class XTCReader(ReaderBase):
         (~3.6 MB/frame at the flagship config).  Scale-hint mechanics
         mirror ``ReaderBase._quantize_staged`` (adaptive one-pass with
         exact re-run on overflow, hints scoped per selection content).
-        Planar requests stage through this same fused decode, then one
-        ``planar_repack`` on the quantized bytes.
+
+        The interleaved block's frames split over
+        ``MDTPU_DECODE_THREADS`` threads (``path="native"``).  A planar
+        int16 request is the same native pass writing the ``(3, B, S)``
+        planes itself, its frames split over ``native.stage_threads``
+        host threads, with no ``planar_repack``: counted as
+        ``path="xtc_planar"``, the count set as the
+        ``mdtpu_stage_threads`` gauge.  A fresh reader's first block
+        (no scale hint yet) is a float32 decode of the selection over
+        the same threads, then ``_quantize_staged``'s exact kernel,
+        which counts it.
 
         Each native decode (the fused call, its re-run on overflow, the
         float32 read that seeds a fresh reader's hint) runs in a
@@ -178,23 +188,18 @@ class XTCReader(ReaderBase):
         if not 0 <= start <= stop <= self.n_frames:
             raise IndexError(
                 f"block [{start},{stop}) out of range [0,{self.n_frames}]")
-        from mdanalysis_mpi_tpu_torch.io.base import norm_quantize, planar_repack
-
-        if layout == "planar":
-            if norm_quantize(quantize) is None:
-                raise ValueError(
-                    "layout='planar' requires quantized staging "
-                    "(int16/int8); float32 blocks stay interleaved")
-            q, boxes, inv_scale = self.stage_block(start, stop, sel=sel,
-                                                   quantize=quantize)
-            return planar_repack(q), boxes, inv_scale
+        from mdanalysis_mpi_tpu_torch.io.base import norm_quantize
 
         qmode = norm_quantize(quantize)
+        if layout == "planar" and qmode is None:
+            raise ValueError(
+                "layout='planar' requires quantized staging "
+                "(int16/int8); float32 blocks stay interleaved")
         if self.transformations or qmode == "int8":
             # int8 has no fused native kernel (opt-in coarse path);
             # the base read-then-quantize handles it
             return ReaderBase.stage_block(self, start, stop, sel=sel,
-                                          quantize=quantize)
+                                          quantize=quantize, layout=layout)
         with TIMERS.phase("gather"):
             if qmode is None:
                 with self._decoding(start, stop):
@@ -205,37 +210,56 @@ class XTCReader(ReaderBase):
                 block, boxes = self.read_block(start, stop, sel=sel)
                 from mdanalysis_mpi_tpu_torch.staging import quantize_block
 
-                q, inv_scale = quantize_block(block)
+                q, inv_scale = quantize_block(block, layout=layout)
                 METRICS.inc("mdtpu_stage_blocks_total", path="numpy")
                 return q, boxes, inv_scale
+            threads = None
+            stage = native.xtc_stage_i16
+            if layout == "planar":
+                threads = native.stage_threads(stop - start)
+                stage = functools.partial(native.xtc_stage_i16_planar,
+                                          threads=threads)
             hints = self._quant_hints()
             key = sel_fingerprint(sel)
             hint = hints.get(key, 0.0)
-            offs = self._offsets[np.arange(start, stop)]
+            offs = self._offsets[start:stop]
             if hint > 0.0:
                 # float64 scale arithmetic, shared policy constants —
                 # must stay bit-identical to ReaderBase._quantize_staged
                 scale = self.QUANT_TARGET / (hint * self.QUANT_MARGIN)
                 with self._decoding(start, stop):
-                    q, box, vmax, overflowed = native.xtc_stage_i16(
+                    q, box, vmax, overflowed = stage(
                         self._path, offs, self._natoms, sel, scale)
                 if vmax > hint:
                     hints[key] = vmax
+                inv_scale = np.float32(1.0 / scale)
                 if overflowed:
                     scale = self.QUANT_TARGET / max(vmax, 1e-30)
                     with self._decoding(start, stop):
-                        q, box, vmax, _ = native.xtc_stage_i16(
+                        q, box, vmax, _ = stage(
                             self._path, offs, self._natoms, sel, scale)
                     METRICS.inc("mdtpu_xtc_redecodes_total")
-                METRICS.inc("mdtpu_stage_blocks_total", path="native")
-                return q, self._dims_from_raw(box), np.float32(1.0 / scale)
+                    inv_scale = np.float32(1.0 / scale)
+                    # as _quantize_staged's exact re-run: the exact
+                    # scale encodes the block max
+                    hints[key] = max(hints[key],
+                                     float(inv_scale) * self.QUANT_TARGET)
+                if threads is None:
+                    METRICS.inc("mdtpu_stage_blocks_total", path="native")
+                else:
+                    METRICS.inc("mdtpu_stage_blocks_total",
+                                path="xtc_planar")
+                    METRICS.set_gauge("mdtpu_stage_threads", threads)
+                return q, self._dims_from_raw(box), inv_scale
             # first block for this selection: fused f32 decode,
             # exact-scale quantize (bit-identical to the NumPy
             # reference), seed the hint
             with self._decoding(start, stop):
-                block, boxes = self.read_block(start, stop, sel=sel)
-            q, inv_scale = self._quantize_staged(block, None, sel_fp=key)
-            return q, boxes, inv_scale
+                block, box = native.xtc_stage_f32(
+                    self._path, offs, self._natoms, sel, threads=threads)
+            q, inv_scale = self._quantize_staged(block, None, sel_fp=key,
+                                                 threads=threads)
+            return q, self._dims_from_raw(box), inv_scale
 
 
 def write_xtc(path: str, coordinates: np.ndarray,

@@ -493,7 +493,10 @@ CANARY_HISTOGRAMS = (
 #: table): blocks staged, labeled ``path=`` by the staging path that
 #: ran (``native`` — the C++ gather/quantize; ``native_planar`` — the
 #: C++ gather, quantize and planar write of a ``MemoryReader``'s planar
-#: int16 block, over host threads; ``numpy`` — a NumPy
+#: int16 block (or of a fresh ``XTCReader``'s first, decoded block),
+#: over host threads; ``xtc_planar`` — ``XTCReader``'s decode, gather,
+#: quantize and planar write of a planar int16 block in one C++ pass
+#: over host threads; ``numpy`` — a NumPy
 #: quantize or gather, the native library's fallback included;
 #: ``store_direct`` — the block store's raw chunk slices; ``generic`` —
 #: the reader's frame-by-frame ``read_block``), the host bytes the
@@ -512,7 +515,7 @@ STAGING_COUNTERS = (
 
 #: Staging gauge, the port's own: the host threads the last native
 #: planar staging pass split its frames over (``io/memory.py``,
-#: ``io.native.stage_threads``: the process's cores over the ranks on
+#: ``io/xtc.py``, ``io.native.stage_threads``: the process's cores over the ranks on
 #: its host, less one).
 STAGING_GAUGES = (
     "mdtpu_stage_threads",

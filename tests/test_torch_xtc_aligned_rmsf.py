@@ -15,13 +15,17 @@ from mdanalysis_mpi_tpu_torch import obs
 from mdanalysis_mpi_tpu_torch.analysis import AlignedRMSF
 from mdanalysis_mpi_tpu_torch.core.topology import Topology
 from mdanalysis_mpi_tpu_torch.core.universe import Universe
-from mdanalysis_mpi_tpu_torch.io.base import ReaderBase
+from mdanalysis_mpi_tpu_torch.io import native
+from mdanalysis_mpi_tpu_torch.io.base import ReaderBase, planar_repack
 from mdanalysis_mpi_tpu_torch.io.xtc import XTCReader, write_xtc
 from mdanalysis_mpi_tpu_torch.obs import spans
 from mdanalysis_mpi_tpu_torch.utils.timers import TIMERS
 
 N_ATOMS, N_FRAMES, BATCH = 2000, 300, 64
 N_BLOCKS = -(-N_FRAMES // BATCH)
+#: a planar block's frames, which none of the thread counts below divide
+#: evenly
+BLOCK = 37
 NAMES = np.array(["CA", "CB", "HA", "HB"])
 #: the heavy atoms: CA and CB of every residue
 HEAVY = np.flatnonzero(np.isin(np.tile(NAMES, N_ATOMS // 4), ["CA", "CB"]))
@@ -55,6 +59,19 @@ def _frames(seed=0, n_frames=N_FRAMES):
 def xtc_path(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("xtc_rmsf") / "traj.xtc")
     write_xtc(path, _frames(), precision=1000.0)
+    return path
+
+
+@pytest.fixture(scope="module")
+def growing_xtc(tmp_path_factory):
+    """Two blocks of ``BLOCK`` frames in a box, the second at twice the
+    first's extent: the scale hint the first seeds overflows on the
+    second."""
+    frames = _frames(seed=2, n_frames=2 * BLOCK)
+    frames[BLOCK:] *= 2.0
+    path = str(tmp_path_factory.mktemp("xtc_grow") / "grow.xtc")
+    write_xtc(path, frames, dimensions=np.array([150.0, 150, 150, 90, 90,
+                                                 90]), precision=1000.0)
     return path
 
 
@@ -116,9 +133,10 @@ def test_answer_agrees_with_a_float64_reference_on_the_xtc_frames(
 
 def test_decode_nests_in_gather_and_counts_the_file(xtc_path, no_tracing):
     """Pass 1 stages every block through one native decode each (the
-    first block's float32 seed read, then the fused int16 decode), each
-    in ``decode`` inside ``gather``; the decoded bytes are the whole
-    file's frames, and no block is decoded twice."""
+    first block's float32 seed read, quantized to planes by the exact
+    native planar kernel, then the fused planar int16 decode), each in
+    ``decode`` inside ``gather``; the decoded bytes are the whole file's
+    frames, and no block is decoded twice."""
     acc0, calls0 = TIMERS.snapshot()
     rep = _run(xtc_path).results.observability
     acc1, calls1 = TIMERS.snapshot()
@@ -129,7 +147,8 @@ def test_decode_nests_in_gather_and_counts_the_file(xtc_path, no_tracing):
     assert rep["phases"]["decode"]["calls"] == N_BLOCKS
     assert rep["phases"]["gather"]["calls"] == N_BLOCKS
     assert 0 < d("decode") <= d("gather")
-    assert rep["staging"]["blocks"] == {"native": N_BLOCKS}
+    assert rep["staging"]["blocks"] == {"native_planar": 1,
+                                        "xtc_planar": N_BLOCKS - 1}
     assert rep["staging"]["xtc_decoded_bytes"] == os.path.getsize(xtc_path)
     assert "xtc_redecodes" not in rep["staging"]
 
@@ -181,3 +200,93 @@ def test_staged_bytes_equal_the_base_read_then_quantize(xtc_path, layout):
         assert q.tobytes() == bq.tobytes()
         assert np.float32(inv).tobytes() == np.float32(binv).tobytes()
         assert boxes is None and bboxes is None
+
+
+#: each case's file and the blocks a fresh reader stages, the last one
+#: compared: a fresh reader's seed block, a hinted block, and a hinted
+#: block that overflows its hint
+PLANAR_CASES = {
+    "seed": ("xtc_path", [(0, BLOCK)]),
+    "hinted": ("xtc_path", [(0, BLOCK), (BLOCK, 2 * BLOCK)]),
+    "overflow": ("growing_xtc", [(0, BLOCK), (BLOCK, 2 * BLOCK)]),
+}
+
+
+def _redecodes():
+    return sum(obs.METRICS.counter("mdtpu_xtc_redecodes_total").values())
+
+
+@pytest.mark.parametrize("threads", [1, 3, 2 * BLOCK])
+@pytest.mark.parametrize("case", sorted(PLANAR_CASES))
+def test_planar_block_equals_the_repacked_single_thread_block(
+        case, threads, request, monkeypatch):
+    """The planar block, decoded over 1, 3 or more threads than it has
+    frames, is ``planar_repack`` of the interleaved block staged on one
+    decode thread, with the same inverse scale and boxes; the
+    overflowing block is decoded again exactly once."""
+    name, blocks = PLANAR_CASES[case]
+    path = request.getfixturevalue(name)
+    monkeypatch.delenv("MDTPU_DECODE_THREADS", raising=False)
+    ref = XTCReader(path)
+    for lo, hi in blocks:
+        rq, rboxes, rinv = ref.stage_block(lo, hi, sel=HEAVY,
+                                           quantize="int16")
+    monkeypatch.setattr(native, "stage_threads", lambda n, *a, **k: threads)
+    r = XTCReader(path)
+    for lo, hi in blocks[:-1]:
+        r.stage_block(lo, hi, sel=HEAVY, quantize="int16", layout="planar")
+    before = _redecodes()
+    q, boxes, inv = r.stage_block(*blocks[-1], sel=HEAVY, quantize="int16",
+                                  layout="planar")
+    assert _redecodes() - before == (case == "overflow")
+    assert q.dtype == np.int16 and q.shape == (3, BLOCK, len(HEAVY))
+    assert q.tobytes() == planar_repack(rq).tobytes()
+    assert np.float32(inv).tobytes() == np.float32(rinv).tobytes()
+    assert (boxes is None) == (rboxes is None) == (name == "xtc_path")
+    if boxes is not None:
+        np.testing.assert_array_equal(boxes, rboxes)
+
+
+def test_a_planar_block_counts_its_path_threads_and_decoded_bytes(
+        xtc_path, no_tracing, monkeypatch):
+    """A fresh reader's planar seed block counts as ``native_planar``
+    (its planes come from the exact native planar kernel); a hinted
+    planar block counts as ``xtc_planar``, sets ``mdtpu_stage_threads``
+    to its thread count, runs one ``decode`` span inside its ``gather``
+    span, counts its compressed bytes once, and repacks nothing."""
+    monkeypatch.setattr(native, "stage_threads", lambda n, *a, **k: 3)
+
+    def counts():
+        return (obs.METRICS.counter("mdtpu_stage_blocks_total"),
+                sum(obs.METRICS.counter("mdtpu_xtc_decoded_bytes_total")
+                    .values()),
+                sum(obs.METRICS.counter("mdtpu_fused_planar_repacks_total")
+                    .values()))
+
+    def blocks_delta(before, after):
+        return {k: n - before.get(k, 0) for k, n in after.items()
+                if n != before.get(k, 0)}
+
+    r = XTCReader(xtc_path)
+    c0 = counts()
+    r.stage_block(0, BLOCK, sel=HEAVY, quantize="int16", layout="planar")
+    c1 = counts()
+    assert blocks_delta(c0[0], c1[0]) == {'path="native_planar"': 1}
+    spans.enable()
+    r.stage_block(BLOCK, 2 * BLOCK, sel=HEAVY, quantize="int16",
+                  layout="planar")
+    doc = spans.document()
+    c2 = counts()
+    assert blocks_delta(c1[0], c2[0]) == {'path="xtc_planar"': 1}
+    gauge = obs.METRICS.snapshot()["mdtpu_stage_threads"]["values"][""]
+    assert gauge == 3
+    span = int(r._offsets[2 * BLOCK] - r._offsets[BLOCK])
+    assert c1[1] - c0[1] == int(r._offsets[BLOCK] - r._offsets[0])
+    assert c2[1] - c1[1] == span
+    assert c2[2] == c0[2]
+    done = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    (g,) = [e for e in done if e["name"] == "gather"]
+    (d,) = [e for e in done if e["name"] == "decode"]
+    assert d["tid"] == g["tid"]
+    assert g["ts"] <= d["ts"]
+    assert d["ts"] + d["dur"] <= g["ts"] + g["dur"]
